@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: build the kernels, hold each against
-its plain PyTorch version on the card, time both, then serve a 4M-Gaussian
-Kingsnake scene at 512 px through the port's ``RenderServer``.
+its plain PyTorch version on the card, time both, serve a 4M-Gaussian
+Kingsnake scene at 512 px through the port's ``RenderServer``, then train
+the same scene for a few steps through ``GSTrainer``.
 
-    python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512]
+    python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
 
 Run from the root of a checkout on a machine with one NVIDIA card (an H100
 is what the numbers in PERF.md were taken on). It builds the kernels from
@@ -15,13 +16,23 @@ before it holds the kernels' numbers as JSON.
 
 Phases, in order (any failure exits non-zero):
   1. card name and power limit; kernel build and its time;
-  2. each kernel against its plain version at the main path's shapes;
+  2. each kernel against its plain version at the main path's shapes (the
+     rasterizer backward with d(out) from a real loss and a random one);
   3. each kernel and its plain version timed with CUDA events;
   4. serving: a few orbit clients through the port's RenderServer, with
      the launch counters zeroed just before and read just after, a strip
      bitwise equal to its full-frame rows, and a small render checked
      against the port's CPU path;
-  5. the kernels' JSON line and the final status line.
+  5. training: 8 ray-marched orbit views, ``GSTrainer.fit`` at batch 4 with
+     one densify round and ``evaluate``, with the launch counters zeroed
+     just before and read just after (4 per step for each kernel, plus one
+     forward per eval view), each step's loss, step time, a per-stage device
+     breakdown and peak memory; a small train step, and a densify round
+     that clones, splits and prunes followed by one more step, each checked
+     against the port's CPU path;
+  6. the kernels' JSON line (``launches`` from the training path, and
+     ``launches_by_path`` with each path's own counts) and the final status
+     line.
 """
 from __future__ import annotations
 
@@ -43,6 +54,10 @@ H100_FP32_PER_S = 67e12      # float32 outside the tensor cores (SXM)
 GSPROJECT_BYTES_PER_GAUSSIAN = (14 + 11) * 4
 GSPROJECT_OPS_PER_GAUSSIAN = 130  # mul/add/compare incl. 5 exp/rsqrt/sqrt, 2 divisions
 RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T update, 3 color FMAs
+# backward, per composited (pixel, splat): the alpha recomputed (15), T by
+# division, w, dw and the color grads (11), d(alpha) and B (5), d(power) and
+# the five geometry grads (17), and the nine sums over the tile's pixels (9)
+RASTER_BWD_OPS_PER_HIT = 66
 SPIN_CYCLES = 200_000_000         # ~0.1 s at the H100's clock, longer than the timed enqueues
 RASTER_FIELDS_READ = 9            # mx, my, conic a/b/c, opacity, r, g, b (not depth, radius)
 
@@ -111,6 +126,37 @@ def host_us(fn, iters: int = 200) -> float:
     return dt
 
 
+def profile_step(fn, wall_ms: float, top: int = 8) -> None:
+    """Device busy time of one ``fn()`` from a torch.profiler trace (the sum of
+    its kernels' and copies' device time, which run one at a time on one
+    stream), its share of the step's unprofiled wall time ``wall_ms``, and
+    the kernels that take most of it. Says so when the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []  # the device-side rows (kernels, copies, fills), not the host ops that launched them
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            rows.append((ev.self_device_time_total, ev.count, ev.key))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms <= 0:
+        log("train step profile: the trace holds no device time; device busy share not measured")
+        return
+    rows.sort(reverse=True)
+    host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+    log(f"train step profile: device busy {busy_ms:.3f} ms of the step's {wall_ms:.3f} ms wall (p50) -> busy "
+        f"share {busy_ms / wall_ms:.4f}, idle share {1 - busy_ms / wall_ms:.4f}; {sum(r[1] for r in rows)} device "
+        f"ops; top: " + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for us, c, k in rows[:top]))
+    log("train step profile, host side (self time): "
+        + "; ".join(f"{k[:40]} x{c} {us / 1e3:.3f} ms" for us, c, k in host[:top]))
+
+
 def kingsnake_scene(n_points: int, seed: int):
     """Host model of ``n_points`` Gaussians on the Kingsnake isosurface.
 
@@ -138,7 +184,7 @@ def kingsnake_scene(n_points: int, seed: int):
         quats=rng.normal(0.0, 1.0, (n_points, 4)).astype(np.float32),
         opacity_logit=(g.opacity_logit + rng.normal(0.0, 0.5, n_points)).astype(np.float32),
     )
-    return g, pts.shape[0]
+    return g, pts.shape[0], vol
 
 
 def allclose_report(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
@@ -166,6 +212,30 @@ def raster_bytes(valid: torch.Tensor, p: int) -> int:
     return valid.numel() * 4 + n_valid * RASTER_FIELDS_READ * 4 + valid.shape[0] * 4 * p * 4
 
 
+def raster_bwd_bytes(valid: torch.Tensor, p: int) -> int:
+    """Bytes the rasterizer backward must move: what the forward reads (valid
+    mask, 9 fields of each valid entry), d(rgb) (T, 3, P) and d(t_final)
+    (T, P) read, and the (T, 11, K) gradient slab written."""
+    n_valid = int((valid > 0.5).sum())
+    t_count, k = valid.shape
+    return valid.numel() * 4 + n_valid * RASTER_FIELDS_READ * 4 + t_count * 4 * p * 4 + t_count * 11 * k * 4
+
+
+def grad_report(got: torch.Tensor, want: torch.Tensor):
+    """(max |got-want|, entries outside atol 2e-5*max|want| + rtol 2e-4|want|),
+    the JAX package's gradient tolerance."""
+    d = (got - want).abs()
+    bad = int((d > 2e-5 * want.abs().max() + 2e-4 * want.abs()).sum())
+    return float(d.max()) if d.numel() else 0.0, bad
+
+
+def image_layout(raw: torch.Tensor, tfin: torch.Tensor, h: int, w: int, th: int, tw: int):
+    """Kernel layout (T,3,P), (T,P) -> (H,W,3) image and (H,W) transmittance."""
+    ty, tx = h // th, w // tw
+    img = raw.reshape(ty, tx, 3, th, tw).permute(0, 3, 1, 4, 2).reshape(h, w, 3)
+    return img, tfin.reshape(ty, tx, th, tw).permute(0, 2, 1, 3).reshape(h, w)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -173,6 +243,9 @@ def main(argv=None) -> int:
     ap.add_argument("--res", type=int, default=512, help="served image side (paper_gs_config)")
     ap.add_argument("--clients", type=int, default=6)
     ap.add_argument("--requests", type=int, default=3, help="requests per client")
+    ap.add_argument("--train-steps", type=int, default=6, help="train steps (one densify round at step 3)")
+    ap.add_argument("--train-views", type=int, default=8, help="ray-marched orbit views to train on")
+    ap.add_argument("--eval-views", type=int, default=2)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -189,13 +262,25 @@ def main(argv=None) -> int:
     from repro_torch.core import gaussians as G
     from repro_torch.core import projection as P
     from repro_torch.core import render as R
-    from repro_torch.core.train import make_batched_eval_render, make_tile_row_render
+    from repro_torch.core.sharding import distributed_gs_loss
+    from repro_torch.core.densify import densify_and_rebalance
+    from repro_torch.core.train import (
+        init_state,
+        make_batched_eval_render,
+        make_tile_row_render,
+        make_train_step,
+        state_from_numpy,
+        state_to_numpy,
+    )
+    from repro_torch.data.views import ViewDataset
     from repro_torch.kernels import _lib
     from repro_torch.kernels.gsproject import ops as gp_ops
     from repro_torch.kernels.gsproject.ref import project_ref
     from repro_torch.kernels.tile_raster import ops as tr_ops
-    from repro_torch.kernels.tile_raster.ref import composite_ref, composited_counts
+    from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref, composited_counts
+    from repro_torch.launch.train import GSTrainer
     from repro_torch.obs import Obs
+    from repro_torch.optim.adam import adam_update
     from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
     from repro_torch.volume.cameras import camera_slice, orbit_cameras
 
@@ -215,13 +300,20 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------- scene
     t0 = time.perf_counter()
-    host, n_surface = kingsnake_scene(args.points, args.seed)
+    host, n_surface, vol = kingsnake_scene(args.points, args.seed)
     log(f"scene: kingsnake {n_surface} surface points -> {host.means.shape[0]} Gaussians "
         f"({time.perf_counter() - t0:.1f} s)")
     cfg = paper_gs_config(args.res)
     g_dev = G.from_numpy(host, dev)
     cams = orbit_cameras(12, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.0)
     cam = camera_slice(cams, 0)
+    # the training views, ray-marched on the card; view 0 is the camera above
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = ViewDataset(vol, n_views=args.train_views, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.0, device=dev)
+    torch.cuda.synchronize()
+    log(f"ground truth: {args.train_views} orbit views ray-marched at {cfg.img_h} px on the card "
+        f"({time.perf_counter() - t0:.2f} s), covered share {float((data.gt.max(-1) > 0).mean()):.4f}")
 
     # ---------------------------------------------------------- 2. compare
     proj_k = gp_ops.project_packed(g_dev, cam)
@@ -268,6 +360,31 @@ def main(argv=None) -> int:
         if roff == 0:
             raster_inputs[label] = (splats_t, vf, kw)
 
+    # the backward, on the frame's hierarchical (main path) and flat lists,
+    # with d(out) from a real loss (L1 + D-SSIM against the ray-marched view;
+    # black background, so d(t_final) is 0) and a random d(out), d(t_final)
+    bwd_err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for label, (splats_t, vf, kw) in raster_inputs.items():
+        raw, tfin = tr_ops.composite(splats_t, vf, **kw)
+        raw.requires_grad_()
+        tfin.requires_grad_()
+        img, tmap = image_layout(raw, tfin, cfg.img_h, cfg.img_w, cfg.tile_h, cfg.tile_w)
+        img = img + tmap[..., None] * torch.zeros(3, device=dev)  # the config's black background
+        loss = distributed_gs_loss(img[None], data.view(0)[1][None])
+        g_real = torch.autograd.grad(loss, [raw, tfin])
+        g_rand = (torch.randn(raw.shape, device=dev, generator=gen), torch.randn(tfin.shape, device=dev, generator=gen))
+        for kind, (gout, gtfin) in (("real loss", g_real), ("random", g_rand)):
+            got = tr_ops.composite_bwd(splats_t, vf, gout.contiguous(), gtfin.contiguous(), **kw)
+            want = composite_bwd_ref(splats_t, vf, gout, gtfin, **kw)
+            err, bad = grad_report(got, want)
+            bwd_err = max(bwd_err, err)
+            log(f"compare tile_raster_bwd {label}, {kind} d(out): max_abs_err {err:.3e} (max |g| "
+                f"{float(want.abs().max()):.3e}), entries outside atol 2e-5*max|g|/rtol 2e-4: {bad} of {want.numel()}")
+            if bad or not torch.isfinite(got).all():
+                raise SystemExit(f"tile_raster_bwd disagrees with its plain version ({label}, {kind})")
+        raster_inputs[label] = (splats_t, vf, kw, g_rand)
+
     # ---------------------------------------------------------- 3. time
     cam_vec = gp_ops.cam_vector(cam)
     gp_ms = cuda_ms(lambda: gp_ops.launch(g_dev, cam_vec), 20, "gsproject kernel")
@@ -281,7 +398,8 @@ def main(argv=None) -> int:
         f"({n * GSPROJECT_BYTES_PER_GAUSSIAN} B), no library call")
 
     tr = {}
-    for label, (splats_t, vf, kw) in raster_inputs.items():
+    trb = {}
+    for label, (splats_t, vf, kw, (gout, gtfin)) in raster_inputs.items():
         ms = cuda_ms(lambda: tr_ops.composite(splats_t, vf, **kw), 20, f"tile_raster {label} kernel")
         plain_ms = cuda_ms(lambda: composite_ref(splats_t, vf, **kw), 3, f"tile_raster {label} plain")
         evals = raster_evals(splats_t, vf, composited_counts(splats_t, vf, **kw))
@@ -296,6 +414,19 @@ def main(argv=None) -> int:
             f"{plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({tr[label]['bound_by']}; "
             f"{int((vf > 0.5).sum())} valid entries, {evals} alpha evaluations of {full_evals} before early exit, "
             f"{nbytes} B), no library call")
+        ms = cuda_ms(lambda: tr_ops.composite_bwd(splats_t, vf, gout, gtfin, **kw), 20, f"tile_raster_bwd {label}")
+        plain_ms = cuda_ms(lambda: composite_bwd_ref(splats_t, vf, gout, gtfin, **kw), 3,
+                           f"tile_raster_bwd {label} plain")
+        hits = int(composited_counts(splats_t, vf, **kw, live_only=True).sum())
+        nbytes = raster_bwd_bytes(vf, cfg.tile_h * cfg.tile_w)
+        b_ops = (evals * RASTER_OPS_PER_EVAL + hits * RASTER_BWD_OPS_PER_HIT) / H100_FP32_PER_S * 1e3
+        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        trb[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_bytes),
+                          bound_by="operations" if b_ops >= b_bytes else "bytes")
+        log(f"time tile_raster_bwd {label}: kernel {ms:.4f} ms (host "
+            f"{host_us(lambda: tr_ops.composite_bwd(splats_t, vf, gout, gtfin, **kw)):.1f} us per launch), plain "
+            f"{plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({trb[label]['bound_by']}; {evals} forward "
+            f"re-evaluations, {hits} composited (pixel, splat) pairs, {nbytes} B), no library call")
 
     # hierarchical vs flat lists at this density (the strip renderer's premise)
     same = (torch.where(fvalid, fidx, -1) == torch.where(valid, idx, -1)).all(dim=1)
@@ -338,8 +469,7 @@ def main(argv=None) -> int:
         f"warmup {server.warmup(buckets=(1,)):.2f} s")
     clients = make_clients(args.clients, n_views=12, img_h=cfg.img_h, img_w=cfg.img_w, radius_spread=1.0)
     torch.cuda.reset_peak_memory_stats(dev)
-    gp_ops.launch_count.n = 0
-    tr_ops.launch_count.n = 0
+    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = 0
     report = run_load(server, clients, requests_per_client=args.requests)
     # a localized update: drop two tile rows of the timestep, then revisit two
     # served poses -> partial hits render only those rows (the strip path)
@@ -347,7 +477,8 @@ def main(argv=None) -> int:
     revisit = [server.submit(camera_slice(cams, i)) for i in range(2)]
     frames_revisit = [f.result() for f in revisit]
     server.run()
-    gp_launches, tr_launches = gp_ops.launch_count.n, tr_ops.launch_count.n
+    serve_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+    gp_launches, tr_launches = serve_launches[:2]
     report = server.report()
     peak = torch.cuda.max_memory_allocated(dev)
     done = report["completed"]
@@ -357,8 +488,9 @@ def main(argv=None) -> int:
     for f in frames + frames_revisit:
         if f.shape != (cfg.img_h, cfg.img_w, 3) or not np.isfinite(f).all() or f.min() < -1e-6 or f.max() > 1 + 1e-6:
             raise SystemExit(f"bad frame: shape {f.shape}, range [{f.min()}, {f.max()}]")
-    if gp_launches == 0 or tr_launches == 0:
-        raise SystemExit(f"main path missed a kernel: gsproject {gp_launches}, tile_raster {tr_launches}")
+    if gp_launches == 0 or tr_launches == 0 or serve_launches[2]:
+        raise SystemExit(f"serving path launches (gsproject, tile_raster_fwd, tile_raster_bwd) {serve_launches}: "
+                         "want both forward kernels and no backward")
     rendered = report["tiles"]["render_rows"] / (cfg.img_h // cfg.tile_h)  # full-frame equivalents
     lat = report["latency_ms"]
     log(f"serve {name} ({card}): {done} requests, {report['frames_per_s']} frames/s, "
@@ -391,17 +523,153 @@ def main(argv=None) -> int:
     if not torch.allclose(img_gpu, img_cpu, atol=1e-4, rtol=1e-4):
         raise SystemExit("card render disagrees with the CPU path on a small input")
 
-    # ---------------------------------------------------------- 5. result
+    # ---------------------------------------------------------- 5. train
+    del g_dev
+    tcfg = paper_gs_config(args.res, densify_from=3, densify_interval=3, densify_until=3,
+                           max_steps=max(args.train_steps, 1))
+    trainer = GSTrainer(tcfg, device=dev, params=host, obs=Obs(), verbose=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = 0
+    losses = trainer.fit(data, steps=args.train_steps, log_every=1)
+    metrics = trainer.evaluate(data, range(args.eval_views))
+    torch.cuda.synchronize()
+    train_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+    train_peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = trainer.step_ms_log
+    log(f"train {name} ({card}): {trainer.state.params.n} Gaussians after {args.train_steps} steps at batch "
+        f"{tcfg.batch_size}, {cfg.img_h} px; losses {[round(x, 6) for x in losses]}; step ms "
+        f"{[round(x, 3) for x in step_ms]}, p50 {float(np.median(step_ms)):.3f} ms "
+        f"({1e3 / float(np.median(step_ms)):.3f} steps/s); eval {metrics}; max_memory_allocated {train_peak} B")
+    log(f"densify rounds: {trainer.densify_reports}")
+    for r_ in trainer.densify_reports:
+        log(f"densify round at {r_.n_before} Gaussians: {r_.n_cloned} cloned, {r_.n_split} split, "
+            f"{r_.n_pruned} pruned -> {r_.n_after} live, {r_.n_padded} allocated (live set changed: "
+            f"{r_.n_cloned + r_.n_split + r_.n_pruned > 0})")
+    want = (4 * args.train_steps + args.eval_views,) * 2 + (4 * args.train_steps,)
+    log(f"launches on the training path: gsproject {train_launches[0]}, tile_raster_fwd {train_launches[1]}, "
+        f"tile_raster_bwd {train_launches[2]} (want {want}: 4 per step each, plus one forward per eval view)")
+    if not np.isfinite(losses).all() or len(losses) != args.train_steps:
+        raise SystemExit(f"training losses not finite: {losses}")
+    if train_launches != want:
+        raise SystemExit(f"training path launches {train_launches}, want {want}")
+    if len(trainer.densify_reports) != 1:
+        raise SystemExit(f"want one densify round, got {trainer.densify_reports}")
+
+    # where a train step's device time goes, stage by stage at the step's
+    # shapes (per-view stages times the batch), then the whole step
+    params = trainer.state.params
+    cams_b, gt_b = next(iter(data.batches(tcfg.batch_size, steps=1)))
+    b = tcfg.batch_size
+    view = camera_slice(cams_b, 0)
+    leaves = [x.detach().requires_grad_() for x in params]
+    packed = P.project(G.GaussianModel(*leaves), view)
+    gpacked = torch.randn(packed.shape, device=dev, generator=gen)
+    pk_leaf = packed.detach().requires_grad_()
+    pk_sorted, order = P.sort_by_depth(pk_leaf)
+    bkw = dict(img_h=tcfg.img_h, img_w=tcfg.img_w, tile_h=tcfg.tile_h, tile_w=tcfg.tile_w, k_per_tile=tcfg.k_per_tile,
+               binning=tcfg.binning)
+    idx, valid = R.bin_tiles(pk_sorted.detach(), **bkw)
+    ras = dict(img_h=tcfg.img_h, img_w=tcfg.img_w, tile_h=tcfg.tile_h, tile_w=tcfg.tile_w,
+               bg=torch.zeros(3, device=dev))
+    img, _ = tr_ops.rasterize_tiles(pk_sorted, idx, valid, **ras)
+    gimg = torch.randn(img.shape, device=dev, generator=gen)
+    imgs = img.detach()[None].expand(b, -1, -1, -1).contiguous().requires_grad_()
+    step_grads = G.GaussianModel(*[torch.randn(x.shape, device=dev, generator=gen) for x in params])
+    lrs = G.GaussianModel(*[1e-3] * 5)
+    with torch.no_grad():
+        stages = {
+            "projection": b * cuda_ms(lambda: P.project(params, view), 5, "stage projection"),
+            "sort and binning": b * cuda_ms(lambda: R.bin_tiles(P.sort_by_depth(packed.detach())[0], **bkw), 3,
+                                            "stage sort and binning"),
+            "rasterizer forward": b * cuda_ms(lambda: tr_ops.rasterize_tiles(pk_sorted.detach(), idx, valid, **ras),
+                                              5, "stage rasterizer forward"),
+        }
+    stages["loss forward and backward"] = cuda_ms(
+        lambda: torch.autograd.grad(distributed_gs_loss(imgs, gt_b), imgs), 5, "stage loss")
+    stages["rasterizer backward and gather transposes"] = b * cuda_ms(
+        lambda: torch.autograd.grad(img, pk_leaf, gimg, retain_graph=True), 5, "stage rasterizer backward")
+    stages["projection backward (plain VJP)"] = b * cuda_ms(
+        lambda: torch.autograd.grad(packed, leaves, gpacked, retain_graph=True), 3, "stage projection backward")
+    stages["Adam"] = cuda_ms(lambda: adam_update(step_grads, trainer.state.adam, params, lrs), 5, "stage Adam")
+    whole = cuda_ms(lambda: trainer.step_fn(trainer.state, cams_b, gt_b), 3, "whole train step")
+    log(f"train step breakdown N={params.n} {tcfg.img_h}px batch {b} ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + f"; sum {sum(stages.values()):.3f} ms; whole step {whole:.3f} ms")
+    profile_step(lambda: trainer.step_fn(trainer.state, cams_b, gt_b), float(np.median(step_ms)))
+    del packed, pk_leaf, pk_sorted, img, imgs, leaves, gpacked, step_grads, trainer, data
+
+    # a small train step on the card against the same step on the CPU
+    small = host._replace(**{f: getattr(host, f)[: 20000] for f in host._fields})
+    scfg = paper_gs_config(64)
+    scams = camera_slice(orbit_cameras(12, img_h=64, img_w=64, radius=3.0), torch.arange(4))
+    sgt = ViewDataset(vol, n_views=12, img_h=64, img_w=64, radius=3.0).gt[:4]
+    res_small = []
+    for d in (dev, torch.device("cpu")):
+        st, m = make_train_step(scfg)(init_state(G.from_numpy(small, d)), scams, torch.tensor(sgt, device=d))
+        res_small.append((float(m["loss"]), [x.cpu() / 0.1 for x in st.adam.m]))  # m = 0.1 g after one step
+    (l_k, g_k), (l_c, g_c) = res_small
+    gerr = max(grad_report(a, b)[0] for a, b in zip(g_k, g_c))
+    gbad = sum(grad_report(a, b)[1] for a, b in zip(g_k, g_c))
+    log(f"small train step 20000 Gaussians at 64 px, card vs CPU path: loss {l_k:.7f} vs {l_c:.7f}, "
+        f"gradients max_abs_err {gerr:.3e}, entries outside atol 2e-5*max|g|/rtol 2e-4: {gbad}")
+    if abs(l_k - l_c) > 1e-5 * abs(l_c) or gbad:
+        raise SystemExit("card train step disagrees with the CPU path on a small input")
+
+    # a densify round that resizes, then one more step on the card and on the
+    # CPU. The round above keeps its real statistics, and at 4M Gaussians they
+    # may resize nothing (the saturated lists keep the view-space gradients
+    # small). Here the CPU step's gradient statistics are drawn from the seed
+    # around the threshold, 5% of the Gaussians are made transparent and the
+    # scene extent puts the clone/split boundary at the median size, so the
+    # round clones, splits and prunes; both devices densify the same numbers
+    # with the same generator. The step's gradient is read back from Adam's
+    # first moment, g = (m' - 0.9 m) / 0.1.
+    h = state_to_numpy(st)  # the CPU's state after its step
+    n_s = h.params.means.shape[0]
+    r = np.random.default_rng(args.seed)
+    logit = h.params.opacity_logit.copy()
+    logit[r.random(n_s) < 0.05] = -8.0
+    h = h._replace(params=h.params._replace(opacity_logit=logit),
+                   grad2d_accum=(h.vis_count * r.uniform(0, 2 * scfg.densify_grad_thresh, n_s)).astype(np.float32))
+    extent = float(np.median(np.exp(h.params.log_scales).max(axis=1))) / scfg.densify_scale_thresh
+    res_dens = []
+    for d in (dev, torch.device("cpu")):
+        st_d, rep_d = densify_and_rebalance(state_from_numpy(h, d), scfg, scene_extent=extent,
+                                            rng=np.random.default_rng(args.seed + 1))
+        m_old = [x.cpu() for x in st_d.adam.m]
+        st2, m = make_train_step(scfg)(st_d, scams, torch.tensor(sgt, device=d))
+        res_dens.append((rep_d, float(m["loss"]), [(x.cpu() - 0.9 * mo) / 0.1 for x, mo in zip(st2.adam.m, m_old)],
+                         st2.params.n))
+    (rep_k, l_k, g_k, n_k), (rep_c, l_c, g_c, n_c) = res_dens
+    gerr = max(grad_report(a, b)[0] for a, b in zip(g_k, g_c))
+    gbad = sum(grad_report(a, b)[1] for a, b in zip(g_k, g_c))
+    log(f"densify round on {n_s} Gaussians: card {tuple(rep_k)}, CPU {tuple(rep_c)}; next step at {n_k} Gaussians, "
+        f"card vs CPU path: loss {l_k:.7f} vs {l_c:.7f}, gradients max_abs_err {gerr:.3e}, entries outside "
+        f"atol 2e-5*max|g|/rtol 2e-4: {gbad}")
+    resized = rep_k.n_cloned and rep_k.n_split and rep_k.n_pruned and n_k == n_c == rep_k.n_padded != n_s
+    if rep_k != rep_c or not resized:
+        raise SystemExit("the small densify round did not resize alike on the card and on the CPU")
+    if abs(l_k - l_c) > 1e-5 * abs(l_c) or gbad:
+        raise SystemExit("card train step after a resizing densify round disagrees with the CPU path")
+
+    # ---------------------------------------------------------- 6. result
     log(f"total {time.perf_counter() - t_all:.1f} s")
     kernels = [
         {"name": "gsproject", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",
-         "replaces": "src/repro/kernels/gsproject/gsproject.py:24", "launches": gp_launches,
+         "replaces": "src/repro/kernels/gsproject/gsproject.py:24", "launches": train_launches[0],
+         "launches_by_path": {"serve": serve_launches[0], "train": train_launches[0]},
          "max_abs_err": gp_err, "ms": gp_ms, "plain_ms": gp_plain_ms,
          "bound_ms": max(gp_bound_bytes, gp_bound_ops),
          "bound_by": "bytes" if gp_bound_bytes >= gp_bound_ops else "operations", "library_ms": None},
         {"name": "tile_raster_fwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/tile_raster.cu",
-         "replaces": "src/repro/kernels/tile_raster/tile_raster.py:102", "launches": tr_launches,
+         "replaces": "src/repro/kernels/tile_raster/tile_raster.py:102", "launches": train_launches[1],
+         "launches_by_path": {"serve": serve_launches[1], "train": train_launches[1]},
          "max_abs_err": tr_err, **tr["frame"], "library_ms": None},
+        {"name": "tile_raster_bwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/tile_raster.cu",
+         "replaces": "src/repro/kernels/tile_raster/tile_raster.py:117", "launches": train_launches[2],
+         "launches_by_path": {"serve": serve_launches[2], "train": train_launches[2]},
+         "max_abs_err": bwd_err, **trb["frame"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

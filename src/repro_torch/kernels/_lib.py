@@ -57,6 +57,9 @@ SIGNATURES = {
     # splats_t (T,11,K), valid (T,K), out (T,3,P), t_final (T,P),
     # n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
     "tile_raster_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # splats_t (T,11,K), valid (T,K), gout (T,3,P), gtfin (T,P), dsplats
+    # (T,11,K), n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
+    "tile_raster_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -7,12 +7,20 @@ runs ``gsproject.cu`` on the model's own tensors, with the camera passed as a
 writes (N, 11) itself: there is no padding, transpose or copy per view. It
 covers SH degree 0 only; a CUDA model with a higher degree raises
 ``NotImplementedError`` rather than falling back.
+
+On a CUDA model the projection is a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward is the vector-Jacobian product of
+``project_ref``, recomputed from the saved inputs, as the JAX package's
+wrapper does with its oracle. No autograd graph of the plain version is
+kept between forward and backward (at 4M Gaussians it would hold GBs per
+view).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import gaussians as G
 from repro_torch.kernels import _lib
 from repro_torch.kernels.gsproject.ref import project_ref
 
@@ -62,6 +70,29 @@ def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
     return out
 
 
+class Project(torch.autograd.Function):
+    """The projection kernel forward; the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, means, log_scales, quats, opacity_logit, sh, cam, near: float, blur: float):
+        ctx.near, ctx.blur = near, blur
+        if any(ctx.needs_input_grad[:5]):
+            # the backward's plain version reads the camera on the device; an
+            # asynchronous copy now keeps it from synchronizing the stream then
+            ctx.cam = type(cam)(*[torch.as_tensor(x).to(means.device, torch.float32, non_blocking=True)
+                                  for x in cam])
+        ctx.save_for_backward(means, log_scales, quats, opacity_logit, sh)
+        return launch(G.GaussianModel(means, log_scales, quats, opacity_logit, sh), cam_vector(cam, near), blur=blur)
+
+    @staticmethod
+    def backward(ctx, gpacked):
+        leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur)
+            grads = torch.autograd.grad(packed, leaves, gpacked)
+        return (*grads, None, None, None)
+
+
 def project_packed(g, cam, *, near: float = 0.01, blur: float = 0.3, max_radius: float = 1e4) -> torch.Tensor:
     """(N, 11) packed splats: the plain version on CPU, the kernel on CUDA."""
     if g.means.device.type != "cuda":
@@ -73,4 +104,4 @@ def project_packed(g, cam, *, near: float = 0.01, blur: float = 0.3, max_radius:
         )
     if max_radius != 1e4:
         raise NotImplementedError("the CUDA projection kernel clamps the radius at 1e4")
-    return launch(g, cam_vector(cam, near), blur=blur)
+    return Project.apply(*g, cam, near, blur)

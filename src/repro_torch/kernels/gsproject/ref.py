@@ -78,8 +78,13 @@ def project_ref(
     conic_a = c * inv_det
     conic_b = -b * inv_det
     conic_c = a * inv_det
-    mid = 0.5 * (a + c)
-    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.0))
+    # The radius carries no gradient (the rasterizer's backward writes zeros
+    # for it), so it is computed from detached values: where mid*mid - det
+    # or lam1 is exactly 0, autograd through ceil's materialised zero and
+    # sqrt's infinite slope would give 0 * inf = NaN in the means' gradient.
+    ad, cd, detd = a.detach(), c.detach(), det.detach()
+    mid = 0.5 * (ad + cd)
+    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - detd, min=0.0))
     radius = torch.clamp(torch.ceil(3.0 * torch.sqrt(torch.clamp(lam1, min=0.0))), max=max_radius)
 
     opac = G.opacities(g)

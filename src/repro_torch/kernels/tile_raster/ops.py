@@ -1,12 +1,17 @@
 """Wrapper of the tile rasterizer: gather, dispatch by device, image layout.
 
 ``rasterize_tiles`` takes depth-sorted packed splats and per-tile index
-lists. On the CPU it runs the plain version (``ref.rasterize_tiles_ref``).
-On a CUDA device it gathers each tile's K splats (``packed[tile_idx]``),
-lays them out as (T, 11, K) slabs, runs ``tile_raster.cu`` (``composite``),
-reshapes its (T, 3, P) output to an (H, W, 3) image and blends the
-background, as the JAX package's wrapper does. There is no fallback: a CUDA
-tensor either runs the kernel or raises.
+lists. It gathers each tile's K splats (``packed[tile_idx]``), lays them out
+as (T, 11, K) slabs, composites them, reshapes the (T, 3, P) output to an
+(H, W, 3) image and blends the background, as the JAX package's wrapper
+does. It is differentiable with respect to ``packed``: the compositor is a
+``torch.autograd.Function`` (the JAX custom VJP), and the sum of each
+splat's gradient across the tiles that list it is autograd of the gather.
+
+On a CUDA device the Function runs ``tile_raster.cu``: ``composite`` forward
+and ``composite_bwd`` backward. On the CPU it runs the plain versions,
+``ref.composite_ref`` and ``ref.composite_bwd_ref``. There is no fallback: a
+CUDA tensor either runs the kernel or raises.
 """
 from __future__ import annotations
 
@@ -17,7 +22,27 @@ from repro_torch.kernels.tile_raster import ref as _ref
 
 MAX_PIXELS = 1024  # one thread per pixel of a tile, one CTA per tile
 
-launch_count = _lib.LaunchCount()
+launch_count = _lib.LaunchCount()      # forward launches
+bwd_launch_count = _lib.LaunchCount()  # backward launches
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, dev: torch.device) -> None:
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: want contiguous float32 {shape} on {dev}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _geometry(splats_t: torch.Tensor, tile_h: int, tile_w: int) -> tuple[int, int, int]:
+    dev = splats_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"tile_raster kernel needs CUDA tensors, got {dev}")
+    if splats_t.dim() != 3 or splats_t.shape[1] != 11:
+        raise ValueError(f"splats_t must be (T, 11, K), got {tuple(splats_t.shape)}")
+    t_count, _, k = splats_t.shape
+    p = tile_h * tile_w
+    if not 0 < p <= MAX_PIXELS:
+        raise ValueError(f"tile of {tile_h}x{tile_w} pixels: the kernel takes 1..{MAX_PIXELS} pixels per tile")
+    return t_count, k, p
 
 
 def composite(
@@ -29,20 +54,11 @@ def composite(
     tile_w: int,
     row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run ``tile_raster.cu``: returns raw rgb (T, 3, P) and t_final (T, P)."""
+    """Run ``tile_raster.cu``'s forward: returns raw rgb (T, 3, P) and t_final (T, P)."""
+    t_count, k, p = _geometry(splats_t, tile_h, tile_w)
     dev = splats_t.device
-    if dev.type != "cuda":
-        raise ValueError(f"tile_raster kernel needs CUDA tensors, got {dev}")
-    if splats_t.dim() != 3 or splats_t.shape[1] != 11:
-        raise ValueError(f"splats_t must be (T, 11, K), got {tuple(splats_t.shape)}")
-    t_count, _, k = splats_t.shape
-    p = tile_h * tile_w
-    if not 0 < p <= MAX_PIXELS:
-        raise ValueError(f"tile of {tile_h}x{tile_w} pixels: the kernel takes 1..{MAX_PIXELS} pixels per tile")
-    for name, x, shape in (("splats_t", splats_t, (t_count, 11, k)), ("valid", valid, (t_count, k))):
-        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: want contiguous float32 {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    _check("splats_t", splats_t, (t_count, 11, k), dev)
+    _check("valid", valid, (t_count, k), dev)
     out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
     if t_count == 0:
@@ -59,6 +75,65 @@ def composite(
     return out, tfin
 
 
+def composite_bwd(
+    splats_t: torch.Tensor,  # (T, 11, K) float32
+    valid: torch.Tensor,     # (T, K) float32
+    gout: torch.Tensor,      # (T, 3, P) float32, d(raw rgb)
+    gtfin: torch.Tensor,     # (T, P) float32, d(t_final)
+    *,
+    tiles_x: int,
+    tile_h: int,
+    tile_w: int,
+    row_offset: int = 0,
+) -> torch.Tensor:
+    """Run ``tile_raster.cu``'s backward: returns d(splats_t) (T, 11, K)."""
+    t_count, k, p = _geometry(splats_t, tile_h, tile_w)
+    dev = splats_t.device
+    for name, x, shape in (("splats_t", splats_t, (t_count, 11, k)), ("valid", valid, (t_count, k)),
+                           ("gout", gout, (t_count, 3, p)), ("gtfin", gtfin, (t_count, p))):
+        _check(name, x, shape, dev)
+    dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
+    if t_count == 0:
+        return dsplats
+    lib = _lib.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tile_raster_bwd(
+            splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), dsplats.data_ptr(),
+            t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
+        )
+    _lib.check("tile_raster_bwd", err)
+    bwd_launch_count.n += 1
+    return dsplats
+
+
+class Composite(torch.autograd.Function):
+    """The tile compositor with its hand-written backward (the JAX package's
+    ``make_composite`` custom VJP). Differentiable in ``splats_t`` only:
+    ``valid`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, splats_t, valid, tiles_x: int, tile_h: int, tile_w: int, row_offset: int):
+        kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+        ctx.kw = kw
+        ctx.save_for_backward(splats_t, valid)
+        if splats_t.device.type == "cuda":
+            return composite(splats_t, valid, **kw)
+        return _ref.composite_ref(splats_t, valid, **kw)
+
+    @staticmethod
+    def backward(ctx, gout, gtfin):
+        # an output that got no gradient arrives as zeros (autograd
+        # materializes them by default)
+        splats_t, valid = ctx.saved_tensors
+        gout, gtfin = gout.contiguous(), gtfin.contiguous()
+        if splats_t.device.type == "cuda":
+            d = composite_bwd(splats_t, valid, gout, gtfin, **ctx.kw)
+        else:
+            d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
+        return d, None, None, None, None, None
+
+
 def rasterize_tiles(
     packed: torch.Tensor,      # (N, 11) depth-sorted packed splats
     tile_idx: torch.Tensor,    # (T, K) int
@@ -72,17 +147,14 @@ def rasterize_tiles(
     row_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rasterize to ((H,W,3) image, (H,W) transmittance)."""
-    if packed.device.type != "cuda":
-        return _ref.rasterize_tiles_ref(
-            packed, tile_idx, tile_valid, img_h, img_w, tile_h, tile_w, bg, row_offset
-        )
     tiles_y = img_h // tile_h
     tiles_x = img_w // tile_w
+    # autograd of this gather sums each splat's per-tile gradients
     tile_splats = packed[tile_idx.long()]                    # (T,K,11)
     splats_t = tile_splats.transpose(1, 2).contiguous()      # (T,11,K)
-    raw, tfin = composite(
+    raw, tfin = Composite.apply(
         splats_t.to(torch.float32), tile_valid.to(torch.float32).contiguous(),
-        tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset,
+        tiles_x, tile_h, tile_w, int(row_offset),
     )
     # (T,3,P) -> (H,W,3)
     img = (

@@ -1,10 +1,18 @@
-"""Plain PyTorch version of the tile rasterizer (forward).
+"""Plain PyTorch version of the tile rasterizer (forward and backward).
 
 The canonical compositing math, as in the JAX package's oracle: alpha clamp
 at 0.99, splats with alpha < 1/255 skipped, and the CUDA 3D-GS stop rule (a
 splat is composited only while the transmittance after it stays >= 1e-4).
 ``tile_raster.cu`` computes the same function per pixel with a running
 product; this version takes the cumulative product over the K axis at once.
+
+``composite_bwd_ref`` is the compositor's vector-Jacobian product on the
+kernel's layout, written out as the JAX package's Pallas ``_bwd_kernel``
+writes it (the reverse exclusive sum ``B``, then d(alpha), then d(power)),
+with that kernel's strict gradient masks: none through the alpha clamp
+(``alpha_raw < 0.99``) nor through ``min(power, 0)`` (``power < 0``).
+Autograd of ``composite_ref`` agrees with it except exactly at those ties,
+where ``torch.clamp`` passes the gradient.
 
 Tiles are composited one tile row at a time: a strip render (one tile row
 with ``row_offset``) then runs the very same tensor ops, at the very same
@@ -113,43 +121,96 @@ def composite_ref(
 
 def composited_counts(
     splats_t: torch.Tensor, valid: torch.Tensor, *, tiles_x: int, tile_h: int, tile_w: int, row_offset: int = 0,
+    live_only: bool = False,
 ) -> torch.Tensor:
-    """Per pixel (T, P), how many splats pass the stop rule: the kernel's
+    """Per pixel (T, P), how many slots pass the stop rule: the kernel's
     front-to-back walk evaluates these and at most one more valid splat.
-    (Work accounting for the kernel's bound; same layout as ``composite_ref``.)"""
+    With ``live_only``, only the splats actually composited (alpha >= 1/255),
+    which is the backward's per-splat work. (Work accounting for the kernels'
+    bounds; same layout as ``composite_ref``.)"""
     tids = torch.arange(splats_t.shape[0], device=splats_t.device)
     px, py = tile_pixel_coords(tids, tiles_x, tile_h, tile_w, row_offset)
 
     def count(splats, vmask, x, y):
-        return (_alpha_and_trans(splats, vmask, x, y)[1] >= T_EPS).sum(dim=1)
+        alpha, t_incl = _alpha_and_trans(splats, vmask, x, y)
+        alive = t_incl >= T_EPS
+        return (alive & (alpha > 0) if live_only else alive).sum(dim=1)
 
     return torch.cat(_by_tile_row(count, splats_t.transpose(1, 2), valid > 0.5, px, py, tiles_x))
 
 
-def rasterize_tiles_ref(
-    packed: torch.Tensor,      # (N, 11) depth-sorted packed splats
-    tile_idx: torch.Tensor,    # (T, K) int indices into packed (depth order)
-    tile_valid: torch.Tensor,  # (T, K) bool
-    img_h: int,
-    img_w: int,
+def _compose_tiles_bwd(splats, vmask, pix_x, pix_y, gout, gtfin) -> torch.Tensor:
+    """VJP of ``compose_tiles`` per tile, with the Pallas kernel's masks.
+
+    splats (T,K,11), vmask (T,K) bool, pix_x/pix_y (T,P), gout (T,P,3) and
+    gtfin (T,P). Returns d(splats) (T,11,K); depth and radius rows are 0."""
+    mx = splats[:, :, _MX, None]
+    my = splats[:, :, _MY, None]
+    ca = splats[:, :, _CA, None]
+    cb = splats[:, :, _CB, None]
+    cc = splats[:, :, _CC, None]
+    op = splats[:, :, _OP, None]
+    rgb = splats[:, :, _CR : _CB_ + 1]  # (T,K,3)
+
+    # the forward, recomputed op for op as _alpha_and_trans computes it
+    dx = pix_x[:, None, :] - mx  # (T,K,P)
+    dy = pix_y[:, None, :] - my
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    e = torch.exp(torch.clamp(power, max=0.0))
+    alpha_raw = op * e
+    alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
+    live = vmask[:, :, None] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+    zero = torch.zeros_like(alpha)
+    alpha = torch.where(live, alpha, zero)
+    t_incl = torch.cumprod(1.0 - alpha, dim=1)
+    t_excl = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
+    alive = t_incl >= T_EPS
+    w = torch.where(alive, alpha * t_excl, zero)
+    t_final = torch.where(alive, t_incl, torch.ones_like(t_incl)).amin(dim=1)  # (T,P)
+
+    # out = sum_k rgb_k w_k: d rgb = w . gout, d w = rgb . gout (alive only)
+    drgb = torch.bmm(w, gout)                                          # (T,K,3)
+    dw = torch.where(alive, torch.bmm(rgb, gout.transpose(1, 2)), zero)  # (T,K,P)
+    # B[k] = sum_{j>k} dw_j w_j + gtfin * t_final: a reverse exclusive sum
+    rev = torch.flip(torch.cumsum(torch.flip(dw * w, dims=(1,)), dim=1), dims=(1,))
+    b = torch.cat([rev[:, 1:], torch.zeros_like(rev[:, :1])], dim=1) + (gtfin * t_final)[:, None, :]
+    dalpha = torch.where(alive, dw * t_excl - b / (1.0 - alpha), zero)
+    # through the clamp and the masks: no gradient where alpha_raw >= 0.99
+    dalpha_raw = torch.where(live & (alpha_raw < ALPHA_MAX), dalpha, zero)
+    dop = (dalpha_raw * e).sum(dim=2)
+    dpower = torch.where(power < 0.0, dalpha_raw * op * e, zero)
+    dca = (dpower * (-0.5 * dx * dx)).sum(dim=2)
+    dcb = (dpower * (-dx * dy)).sum(dim=2)
+    dcc = (dpower * (-0.5 * dy * dy)).sum(dim=2)
+    dmx = -(dpower * (-ca * dx - cb * dy)).sum(dim=2)
+    dmy = -(dpower * (-cc * dy - cb * dx)).sum(dim=2)
+    zk = torch.zeros_like(dop)
+    return torch.stack([dmx, dmy, dca, dcb, dcc, dop, drgb[..., 0], drgb[..., 1], drgb[..., 2], zk, zk], dim=1)
+
+
+def composite_bwd_ref(
+    splats_t: torch.Tensor,  # (T, 11, K)
+    valid: torch.Tensor,     # (T, K) float, > 0.5 = valid
+    gout: torch.Tensor,      # (T, 3, P) d(raw rgb)
+    gtfin: torch.Tensor,     # (T, P) d(t_final)
+    *,
+    tiles_x: int,
     tile_h: int,
     tile_w: int,
-    bg,
     row_offset: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-image tiled rasterization. Returns (image (H,W,3), T (H,W))."""
-    tiles_x = img_w // tile_w
-    tiles_y = img_h // tile_h
-    tids = torch.arange(tile_idx.shape[0], device=packed.device)
+) -> torch.Tensor:
+    """The backward kernel's function on its layout: d(splats_t) (T, 11, K).
+
+    One tile row at a time, like ``composite_ref``, which also bounds the
+    (tiles, K, P) temporaries of a large frame."""
+    tids = torch.arange(splats_t.shape[0], device=splats_t.device)
     px, py = tile_pixel_coords(tids, tiles_x, tile_h, tile_w, row_offset)
-    parts = _by_tile_row(compose_tiles, packed[tile_idx.long()], tile_valid, px, py, tiles_x)
-    rgb, trans = torch.cat([o for o, _ in parts]), torch.cat([t for _, t in parts])
-    bg = torch.as_tensor(bg, dtype=torch.float32).to(packed.device)
-    rgb = rgb + trans[:, :, None] * bg
-    # (T, P, 3) -> (H, W, 3)
-    img = rgb.reshape(tiles_y, tiles_x, tile_h, tile_w, 3).permute(0, 2, 1, 3, 4).reshape(img_h, img_w, 3)
-    tmap = trans.reshape(tiles_y, tiles_x, tile_h, tile_w).permute(0, 2, 1, 3).reshape(img_h, img_w)
-    return img, tmap
+    splats, vmask, g = splats_t.transpose(1, 2), valid > 0.5, gout.transpose(1, 2)
+    return torch.cat([
+        _compose_tiles_bwd(splats[r : r + tiles_x].contiguous(), vmask[r : r + tiles_x], px[r : r + tiles_x],
+                           py[r : r + tiles_x], g[r : r + tiles_x], gtfin[r : r + tiles_x])
+        for r in range(0, splats_t.shape[0], tiles_x)
+    ])
 
 
 def rasterize_naive(packed: torch.Tensor, img_h: int, img_w: int, bg, chunk: int = 4096):

@@ -1,15 +1,17 @@
 """Gaussian render-serving driver (PyTorch port): model -> multi-client service.
 
-Initializes a fresh model from a synthetic isosurface, builds the LOD
-pyramid, and drives the batched render server with a synthetic client fleet,
-printing a JSON report. Runs on the card by default and raises when there is
-none; ``--device cpu`` serves through the plain PyTorch versions instead.
+Loads a trained model from a checkpoint (``--ckpt``, written by either
+package's training CLI) or initializes a fresh one from a synthetic
+isosurface, builds the LOD pyramid, and drives the batched render server
+with a synthetic client fleet, printing a JSON report. Runs on the card by
+default and raises when there is none; ``--device cpu`` serves through the
+plain PyTorch versions instead.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_gs --smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve_gs --ckpt experiments/ckpts/run0 --res 64
   PYTHONPATH=src python -m repro_torch.launch.serve_gs --res 512 --clients 4 --requests 4
 
-Loading a training checkpoint (``--ckpt``) and span traces (``--trace-out``)
-are not ported yet.
+Span traces (``--trace-out``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import os
 
 import torch
 
+from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs.gs_datasets import DATASETS
 from repro_torch.core import gaussians as G
 from repro_torch.core.config import GSConfig
@@ -26,6 +29,15 @@ from repro_torch.obs import Obs
 from repro_torch.serve_gs import RenderServer, make_clients, run_load
 from repro_torch.volume import datasets as VD
 from repro_torch.volume.isosurface import extract_isosurface_points
+
+
+def load_params_from_ckpt(ckpt_dir: str) -> G.GaussianModel:
+    """Host (CPU) model of the newest checkpoint under ``ckpt_dir``."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise SystemExit(f"no checkpoint under {ckpt_dir}")
+    like = {"params": G.GaussianModel(*[None] * len(G.GaussianModel._fields))}
+    return restore_checkpoint(ckpt_dir, step, like, device="cpu")["params"]
 
 
 def init_params_from_volume(dataset: str, *, volume_res: int, max_points: int) -> G.GaussianModel:
@@ -40,6 +52,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true", help="reduced config (32px, 32 requests)")
     ap.add_argument("--device", default="cuda", help="torch device to serve on (default: the card)")
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir written by either package's training CLI")
     ap.add_argument("--dataset", choices=list(DATASETS), default="kingsnake")
     ap.add_argument("--volume-res", type=int, default=48)
     ap.add_argument("--max-points", type=int, default=4000)
@@ -75,9 +88,12 @@ def main(argv=None):
         args.volume_res = min(args.volume_res, 32)
         args.max_points = min(args.max_points, 800)
 
-    params = init_params_from_volume(
-        args.dataset, volume_res=args.volume_res, max_points=args.max_points
-    )
+    if args.ckpt:
+        params = load_params_from_ckpt(args.ckpt)
+    else:
+        params = init_params_from_volume(
+            args.dataset, volume_res=args.volume_res, max_points=args.max_points
+        )
     cfg = GSConfig(img_h=args.res, img_w=args.res, k_per_tile=128 if args.smoke else 256)
 
     with RenderServer(

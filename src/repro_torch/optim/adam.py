@@ -1,0 +1,62 @@
+"""Adam with per-field learning rates (3D-GS trains each field at its own LR).
+
+The JAX package's own Adam (``optim/adam.py``), not ``torch.optim.Adam``:
+eps 1e-15, a learning rate per parameter field, and the bias correction
+computed in float32 from the int32 step count, as JAX computes it. The
+update is functional, as in JAX: it returns new tensors and leaves its
+inputs alone.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class AdamState(NamedTuple):
+    m: object             # NamedTuple of tensors like params
+    v: object             # NamedTuple of tensors like params
+    count: torch.Tensor   # () int32
+
+
+def adam_init(params) -> AdamState:
+    zeros = type(params)(*[torch.zeros_like(x) for x in params])
+    return AdamState(
+        zeros,
+        type(params)(*[torch.zeros_like(x) for x in params]),
+        torch.zeros((), dtype=torch.int32, device=params[0].device),
+    )
+
+
+def adam_update(
+    grads,
+    state: AdamState,
+    params,
+    lr_tree,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-15,
+):
+    """One Adam step. ``lr_tree`` is a NamedTuple of scalars (floats or 0-d
+    float32 tensors) matching params, or a single scalar for every field."""
+    count = state.count + 1
+    c = count.to(torch.float32)
+    # torch.full fills on the device; torch.tensor(x, device=...) would copy
+    # from the host and synchronize the stream
+    bc1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=c.device), c)
+    bc2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=c.device), c)
+    if not hasattr(lr_tree, "_fields"):
+        lr_tree = type(params)(*[lr_tree] * len(params))
+
+    new_m, new_v, new_p = [], [], []
+    for g, m, v, p, lr in zip(grads, state.m, state.v, params, lr_tree):
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mhat = m / bc1
+        vhat = v / bc2
+        new_m.append(m)
+        new_v.append(v)
+        new_p.append(p - lr * mhat / (torch.sqrt(vhat) + eps))
+    kind = type(params)
+    return kind(*new_p), AdamState(kind(*new_m), kind(*new_v), count)

@@ -1,5 +1,6 @@
 """PyTorch port, on the card: each hand-written CUDA kernel against its plain
-PyTorch version, and the serving path through both kernels.
+PyTorch version, the serving path through the forward kernels, and a train
+step through all three kernels against the same step on the CPU.
 
 Every test here needs a CUDA device and skips without one (the decision is
 made inside the ``cuda_device`` fixture, so every xdist worker collects the
@@ -18,12 +19,20 @@ from repro_torch.core import gaussians as G
 from repro_torch.core import projection as P
 from repro_torch.core import render as R
 from repro_torch.core.config import GSConfig
-from repro_torch.core.train import make_batched_eval_render, make_tile_row_render
+from repro_torch.core.densify import densify_and_rebalance
+from repro_torch.core.train import (
+    init_state,
+    make_batched_eval_render,
+    make_tile_row_render,
+    make_train_step,
+    state_from_numpy,
+    state_to_numpy,
+)
 from repro_torch.kernels import _lib
 from repro_torch.kernels.gsproject import ops as gp_ops
 from repro_torch.kernels.gsproject.ref import project_ref
 from repro_torch.kernels.tile_raster import ops as tr_ops
-from repro_torch.kernels.tile_raster.ref import composite_ref
+from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref
 from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
 
 torch.set_num_threads(2)
@@ -66,7 +75,7 @@ def test_kernel_library_builds_and_loads(cuda_device):
     build = _lib.build_library()
     assert build.path.exists()
     lib = _lib.library()
-    assert lib.gsproject_fwd and lib.tile_raster_fwd
+    assert lib.gsproject_fwd and lib.tile_raster_fwd and lib.tile_raster_bwd
 
 
 @pytest.mark.parametrize("n", [1000, 4096, 100_003])
@@ -160,3 +169,154 @@ def test_server_on_card_goes_through_both_kernels(cuda_device):
     assert gp_ops.launch_count.n > before[0] and tr_ops.launch_count.n > before[1]
     for a, b in zip(frames[str(cuda_device)], frames["cpu"]):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _bwd_inputs(seed, t_count, k, tiles_x, th, tw, row_offset):
+    """Random slabs that overlap their tiles, and random cotangents."""
+    r = np.random.default_rng(seed)
+    s = np.zeros((t_count, 11, k), np.float32)
+    ty, tx = np.arange(t_count) // tiles_x, np.arange(t_count) % tiles_x
+    s[:, 0] = tx[:, None] * tw + r.uniform(-4, tw + 4, (t_count, k))
+    s[:, 1] = ty[:, None] * th + row_offset + r.uniform(-4, th + 4, (t_count, k))
+    s[:, 2] = r.uniform(0.02, 0.3, (t_count, k))
+    s[:, 3] = r.uniform(-0.02, 0.02, (t_count, k))
+    s[:, 4] = r.uniform(0.02, 0.3, (t_count, k))
+    s[:, 5] = r.uniform(0.05, 1.0, (t_count, k))  # some reach the 0.99 clamp
+    s[:, 6:9] = r.uniform(0, 1, (t_count, 3, k))
+    valid = (r.uniform(size=(t_count, k)) < 0.85).astype(np.float32)
+    valid[t_count // 2:, k // 3:] = 0.0
+    valid[-1] = 0.0  # an empty tile
+    p = th * tw
+    gout = r.normal(size=(t_count, 3, p)).astype(np.float32)
+    gtfin = r.normal(size=(t_count, p)).astype(np.float32)
+    return s, valid, gout, gtfin
+
+
+# (tiles, K, tiles_x, tile_h, tile_w, row_offset): the main path's 16x16
+# tiles, tiles of 512 and 1,024 pixels (the slots go in chunks of 128 and 64),
+# a tile of 35 pixels (a part-filled last warp), and a strip's row offset
+BWD_CASES = [
+    (8, 300, 4, 16, 16, 0),
+    (8, 256, 4, 16, 16, 48),
+    (6, 200, 3, 16, 32, 0),
+    (4, 160, 2, 32, 32, 0),
+    (6, 96, 3, 5, 7, 10),
+]
+
+
+@pytest.mark.parametrize("t_count,k,tiles_x,th,tw,row_offset", BWD_CASES)
+def test_composite_bwd_kernel_matches_plain(cuda_device, t_count, k, tiles_x, th, tw, row_offset):
+    s, valid, gout, gtfin = _bwd_inputs(t_count + k, t_count, k, tiles_x, th, tw, row_offset)
+    kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
+    args = [torch.tensor(x, device=cuda_device) for x in (s, valid, gout, gtfin)]
+    before = tr_ops.bwd_launch_count.n
+    got = tr_ops.composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert tr_ops.bwd_launch_count.n == before + 1
+    want = composite_bwd_ref(*args, **kw)
+    want_cpu = composite_bwd_ref(*[torch.tensor(x) for x in (s, valid, gout, gtfin)], **kw)
+    scale = float(want.abs().max())
+    # the reference's own gradient tolerance (tests/test_tile_raster_kernel.py)
+    for w in (want.cpu().numpy(), want_cpu.numpy()):
+        np.testing.assert_allclose(got.cpu().numpy(), w, atol=2e-5 * scale, rtol=2e-4)
+    assert not got[:, 9:].any()
+    assert got[-1].abs().max() == 0  # the empty tile
+    again = tr_ops.composite_bwd(*args, **kw)
+    assert torch.equal(again, got)  # no atomics: the slab is deterministic
+
+
+def test_rasterize_tiles_gradient_on_card_matches_cpu(cuda_device):
+    host = _scene(300, seed=11)
+    cam = _cam(64, 64)
+    kw = dict(img_h=64, img_w=64, tile_h=16, tile_w=16, k_per_tile=128)
+    target = np.random.default_rng(0).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        packed = P.sort_by_depth(P.project(G.from_numpy(host, dev), cam))[0].detach().requires_grad_()
+        img, t = R.render_packed(packed, bg=torch.tensor([0.2, 0.4, 0.6], device=dev), **kw)
+        loss = (img - torch.tensor(target, device=dev)).abs().mean() + t.mean()
+        grads[dev.type] = torch.autograd.grad(loss, packed)[0].cpu().numpy()
+    scale = np.abs(grads["cpu"]).max()
+    np.testing.assert_allclose(grads["cuda"], grads["cpu"], atol=2e-5 * scale, rtol=2e-4)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One train step through the three kernels against the same step on the
+    CPU (the plain versions): loss, gradients (Adam's first moment after one
+    step is 0.1 * g) and the densify statistics."""
+    host = _scene(3000, seed=4, scale=0.03)
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3))
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        counts = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+        state, m = make_train_step(cfg)(init_state(G.from_numpy(host, dev)), cams, torch.tensor(gt, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n) == tuple(
+                c + 2 for c in counts)
+        out[dev.type] = (float(m["loss"]), [x.cpu().numpy() for x in state.adam.m],
+                         [x.cpu().numpy() for x in (state.grad2d_accum, state.vis_count, state.max_radii)])
+    (l_k, m_k, st_k), (l_c, m_c, st_c) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(l_k, l_c, rtol=1e-5)
+    for a, b in zip(m_k, m_c):
+        assert np.isfinite(a).all()
+        scale = np.abs(b).max() / 0.1
+        np.testing.assert_allclose(a / 0.1, b / 0.1, atol=2e-5 * scale, rtol=2e-4)
+    np.testing.assert_allclose(st_k[0], st_c[0], atol=2e-5 * np.abs(st_c[0]).max(), rtol=2e-4)
+    np.testing.assert_array_equal(st_k[1], st_c[1])
+    np.testing.assert_array_equal(st_k[2], st_c[2])
+
+
+def test_train_step_after_densify_on_card_matches_cpu(cuda_device):
+    """A densify round that clones, splits and prunes, then one train step on
+    the card against the same on the CPU: the resized parameters and Adam
+    moments, the padding, the regrown probe and the fresh statistics all go
+    through the three kernels. The round starts from one real CPU step; its
+    gradient statistics are then drawn from a seed around the threshold, a
+    few Gaussians are made transparent, and the scene extent puts the
+    clone/split boundary at the median size, so that the round does all
+    three. Both devices densify the same numbers with the same generator.
+    The step's gradient is read back from Adam's first moment,
+    g = (m' - 0.9 m) / 0.1."""
+    host = _scene(3000, seed=6, scale=0.03)
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3))
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = np.random.default_rng(6).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    step = make_train_step(cfg)
+    pre, _ = step(init_state(G.from_numpy(host, "cpu")), cams, torch.tensor(gt))
+    h = state_to_numpy(pre)
+    n = h.params.means.shape[0]
+    r = np.random.default_rng(6)
+    logit = h.params.opacity_logit.copy()
+    logit[r.random(n) < 0.05] = -8.0
+    h = h._replace(params=h.params._replace(opacity_logit=logit),
+                   grad2d_accum=(h.vis_count * r.uniform(0, 2 * cfg.densify_grad_thresh, n)).astype(np.float32))
+    extent = float(np.median(np.exp(h.params.log_scales).max(axis=1))) / cfg.densify_scale_thresh
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        st, rep = densify_and_rebalance(state_from_numpy(h, dev), cfg, scene_extent=extent,
+                                        rng=np.random.default_rng(7))
+        m_old = [x.cpu().numpy() for x in st.adam.m]
+        counts = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+        st2, m = step(st, cams, torch.tensor(gt, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n) == tuple(
+                c + 2 for c in counts)
+        assert st2.params.n == rep.n_padded
+        grads = [(x.cpu().numpy() - 0.9 * mo) / 0.1 for x, mo in zip(st2.adam.m, m_old)]
+        out.append((rep, float(m["loss"]), grads,
+                    [x.cpu().numpy() for x in (st2.grad2d_accum, st2.vis_count, st2.max_radii)]))
+    (rep_k, l_k, g_k, st_k), (rep_c, l_c, g_c, st_c) = out
+    assert rep_k == rep_c
+    assert rep_c.n_cloned > 0 and rep_c.n_split > 0 and rep_c.n_pruned > 0
+    assert rep_c.n_padded != n
+    np.testing.assert_allclose(l_k, l_c, rtol=1e-5)
+    for a, b in zip(g_k, g_c):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, atol=2e-5 * np.abs(b).max(), rtol=2e-4)
+    np.testing.assert_allclose(st_k[0], st_c[0], atol=2e-5 * np.abs(st_c[0]).max(), rtol=2e-4)
+    np.testing.assert_array_equal(st_k[1], st_c[1])
+    np.testing.assert_array_equal(st_k[2], st_c[2])
