@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: build the kernels, hold each against
 its plain PyTorch version on the card, time both, serve a 4M-Gaussian
-Kingsnake scene at 512 px through the port's ``RenderServer``, then train
-the same scene for a few steps through ``GSTrainer``.
+Kingsnake scene at 512 px through the port's ``RenderServer``, train the
+same scene for a few steps through ``GSTrainer``, then prefill and decode
+the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
 
@@ -30,13 +31,27 @@ Phases, in order (any failure exits non-zero):
      breakdown and peak memory; a small train step, and a densify round
      that clones, splits and prunes followed by one more step, each checked
      against the port's CPU path;
-  6. the kernels' JSON line (``launches`` from the training path, and
-     ``launches_by_path`` with each path's own counts) and the final status
-     line.
+  7. lm: the attention kernel against its plain version (the JAX kernel
+     test's sweep, Skv 9000, the model's own prefill shape in float32 and
+     bfloat16, two launches bitwise equal, the autograd.Function's
+     gradient), timed beside its plain version, its bound and PyTorch's
+     ``scaled_dot_product_attention``; Qwen3-0.6B at full width (28 layers,
+     bfloat16, random weights from ``--seed``) through ``make_prefill_step``
+     at batch 4 x 4096 tokens with the launch counters zeroed just before
+     and read just after (one attention launch per layer and call), and
+     through the serving CLI's loop (batch 4, 32 prompt steps, 16 greedy
+     tokens); in float32, a 128-token prompt's last logits on the card
+     against the CPU path and against the card's serve steps; the phase's
+     peak memory;
+  6. the result, printed last (after phase 7): the kernels' JSON line (``launches`` from each
+     kernel's main path: training for the splatting kernels, the LM prefill
+     for attention; ``launches_by_path`` with every path's own counts) and
+     the final status line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -46,10 +61,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
 H100_FP32_PER_S = 67e12      # float32 outside the tensor cores (SXM)
+H100_BF16_PER_S = 989e12     # bfloat16 dense on the tensor cores, NVIDIA data sheet (SXM)
 # operation counts per unit of work, from the kernels' sources
 GSPROJECT_BYTES_PER_GAUSSIAN = (14 + 11) * 4
 GSPROJECT_OPS_PER_GAUSSIAN = 130  # mul/add/compare incl. 5 exp/rsqrt/sqrt, 2 divisions
@@ -114,6 +131,19 @@ def cuda_ms(fn, iters: int, label: str, warmup: int = 2) -> float:
     return total / iters * 1e3
 
 
+def wall_ms(fn, iters: int) -> float:
+    """Mean wall milliseconds of ``fn()`` with the device drained after each call."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / iters * 1e3
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Mean host microseconds to enqueue one ``fn()`` (the wrapper's cost)."""
     fn()
@@ -126,7 +156,7 @@ def host_us(fn, iters: int = 200) -> float:
     return dt
 
 
-def profile_step(fn, wall_ms: float, top: int = 8) -> None:
+def profile_step(fn, wall_ms: float, top: int = 8, label: str = "train step") -> None:
     """Device busy time of one ``fn()`` from a torch.profiler trace (the sum of
     its kernels' and copies' device time, which run one at a time on one
     stream), its share of the step's unprofiled wall time ``wall_ms``, and
@@ -145,15 +175,15 @@ def profile_step(fn, wall_ms: float, top: int = 8) -> None:
             rows.append((ev.self_device_time_total, ev.count, ev.key))
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms <= 0:
-        log("train step profile: the trace holds no device time; device busy share not measured")
+        log(f"{label} profile: the trace holds no device time; device busy share not measured")
         return
     rows.sort(reverse=True)
     host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
                    if ev.device_type == torch.autograd.DeviceType.CPU), reverse=True)
-    log(f"train step profile: device busy {busy_ms:.3f} ms of the step's {wall_ms:.3f} ms wall (p50) -> busy "
+    log(f"{label} profile: device busy {busy_ms:.3f} ms of the step's {wall_ms:.3f} ms wall (p50) -> busy "
         f"share {busy_ms / wall_ms:.4f}, idle share {1 - busy_ms / wall_ms:.4f}; {sum(r[1] for r in rows)} device "
         f"ops; top: " + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for us, c, k in rows[:top]))
-    log("train step profile, host side (self time): "
+    log(f"{label} profile, host side (self time): "
         + "; ".join(f"{k[:40]} x{c} {us / 1e3:.3f} ms" for us, c, k in host[:top]))
 
 
@@ -236,6 +266,204 @@ def image_layout(raw: torch.Tensor, tfin: torch.Tensor, h: int, w: int, th: int,
     return img, tfin.reshape(ty, tx, th, tw).permute(0, 2, 1, 3).reshape(h, w)
 
 
+# the JAX flash-attention kernel test's sweep, (B, S, Skv, H, Hkv, hd, causal,
+# window) with q_offset = Skv - S, then Skv 9000 (where the JAX wrapper falls
+# back to its oracle)
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, True, None),
+    (1, 256, 256, 4, 2, 32, True, None),
+    (2, 128, 128, 2, 2, 64, True, 32),
+    (1, 64, 128, 2, 2, 32, True, None),
+    (1, 128, 128, 4, 1, 64, False, None),
+    (1, 100, 100, 2, 2, 64, True, None),
+    (1, 64, 9000, 1, 1, 32, True, None),
+]
+FLASH_F32_TOL = (2e-5, 2e-4)    # atol, rtol: the JAX kernel test's
+FLASH_BF16_TOL = (1e-2, 1.6e-2)  # one bfloat16 step is up to 2^-7 relative
+LM_CROSS_TOL = 1e-3             # float32 logits: max |difference| <= this x max |logit|
+LM_BATCH, LM_SEQ = 4, 4096      # the prefill step's batch and prompt length
+
+
+def attention_pairs(s: int, skv: int, causal: bool, window, q_offset: int) -> int:
+    """Unmasked (query, key) pairs of one (batch, head)."""
+    pos = q_offset + np.arange(s)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros_like(pos)
+    hi = np.minimum(pos, skv - 1) if causal else np.full_like(pos, skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: list, counters: dict) -> dict:
+    """Phase 7: the attention kernel and the LM serving path at ``cfg``'s
+    widths. Returns the kernel's JSON entry and each path's launch counts."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import api, lm
+    from repro_torch.models.params import tree_leaves, tree_to
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def qkv(b, s, skv, h, hkv, hd, dtype=torch.float32):
+        return [torch.randn(shape, device=dev, generator=gen).to(dtype)
+                for shape in ((b, s, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd))]
+
+    def compare(label, q, k, v, kw, tol):
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err, bad = allclose_report(got.float(), want.float(), *tol)
+        same = float((got == want).float().mean())
+        log(f"compare flash_attention {label} {tuple(q.shape)} kv {tuple(k.shape)} {str(q.dtype)[6:]} {kw}: "
+            f"max_abs_err {err:.3e}, entries outside atol {tol[0]}/rtol {tol[1]}: {bad} of {got.numel()}, "
+            f"bitwise equal share {same:.6f}")
+        if bad or not torch.isfinite(got).all():
+            raise SystemExit(f"flash_attention disagrees with its plain version ({label})")
+        return err, got
+
+    # ------------------------------------------------ a. kernel vs plain
+    for c in FLASH_CASES:
+        b, s, skv, h, hkv, hd, causal, window = c
+        compare("case", *qkv(b, s, skv, h, hkv, hd), dict(causal=causal, window=window, q_offset=skv - s),
+                FLASH_F32_TOL)
+    shape = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    compare("model shape", *qkv(*shape), {}, FLASH_F32_TOL)
+    q, k, v = qkv(*shape, dtype=torch.bfloat16)
+    bf16_err, out = compare("model shape", q, k, v, {}, FLASH_BF16_TOL)
+    if not torch.equal(fa_ops.flash_attention(q, k, v), out):
+        raise SystemExit("flash_attention: two launches on the same inputs differ")
+    log("flash_attention: two launches at the model shape bitwise equal")
+    gq, gk, gv = qkv(2, 96, 160, 4, 2, 64)
+    gout = torch.randn(gq.shape, device=dev, generator=gen)
+    grads = []
+    for fn in (fa_ops.flash_attention, attention_ref):
+        leaves = [x.clone().requires_grad_() for x in (gq, gk, gv)]
+        grads.append(torch.autograd.grad(fn(*leaves, causal=True, window=48, q_offset=64), leaves, gout))
+    gerr = max(grad_report(a, b_)[0] for a, b_ in zip(*grads))
+    gbad = sum(grad_report(a, b_)[1] for a, b_ in zip(*grads))
+    log(f"flash_attention autograd.Function vs autograd of the plain version (2, 96, 4, 64), kv 160, window 48: "
+        f"gradients max_abs_err {gerr:.3e}, entries outside atol 2e-5*max|g|/rtol 2e-4: {gbad}")
+    if gbad:
+        raise SystemExit("flash_attention gradient disagrees with the plain version's")
+
+    # ------------------------------------------------ b. time at the prefill shape
+    ms = cuda_ms(lambda: fa_ops.launch(q, k, v), 10, "flash_attention kernel")
+    plain_ms = wall_ms(lambda: attention_ref(q, k, v), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 10,
+                     "scaled_dot_product_attention")
+    lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+                     .float() - out.float()).abs().max())
+    pairs = attention_pairs(seq, seq, True, None, 0)
+    flops = 4 * cfg.hd * pairs * batch * cfg.n_heads
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+    b_ops, b_bytes = flops / H100_BF16_PER_S * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    bound = max(b_ops, b_bytes)
+    log(f"time flash_attention {tuple(q.shape)} kv {tuple(k.shape)} bfloat16 causal ({card}): kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s of counted work; host "
+        f"{host_us(lambda: fa_ops.launch(q, k, v), 20):.1f} us per launch), plain {plain_ms:.4f} ms (wall per call), "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms (max |difference| from the kernel {lib_err:.3e}), bound "
+        f"{bound:.4f} ms ({'operations' if b_ops >= b_bytes else 'bytes'}: {flops} flops = 4 x hd x {pairs} unmasked "
+        f"pairs x B x H at 989 TFLOP/s -> {b_ops:.4f} ms; {nbytes} B of q, k, v, o at 3.35 TB/s -> {b_bytes:.4f} ms)")
+    del q, k, v, qt, kt, vt, out, gq, gk, gv, grads
+
+    # ------------------------------------------------ c. prefill at full width
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"lm: {cfg.name} {cfg.n_layers}L d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.hd} "
+        f"d_ff {cfg.d_ff} vocab {cfg.vocab} {cfg.dtype}, {n_params} parameters from seed {seed} on the card "
+        f"({time.perf_counter() - t0:.2f} s)")
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=dev, generator=gen)
+    prefill = api.make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens})  # warm-up: cuBLAS handles and the first launches
+    torch.cuda.synchronize()
+    calls = 3
+    for c in counters.values():
+        c.n = 0
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_launches = {name: c.n for name, c in counters.items()}
+    p50 = float(np.median(times))
+    log(f"lm prefill {cfg.name} batch {batch} x {seq} tokens ({card}): ms {[round(x, 3) for x in times]}, p50 "
+        f"{p50:.3f} ms, {batch * seq / p50 * 1e3:.1f} prompt tokens/s; logits {tuple(logits.shape)} "
+        f"{str(logits.dtype)[6:]}, finite {bool(torch.isfinite(logits).all())}; launches {prefill_launches} "
+        f"(want flash_attention {cfg.n_layers} per call x {calls}, the others 0)")
+    if logits.shape != (batch, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise SystemExit("lm prefill: last-position logits of the wrong shape or not finite")
+    want = {name: (cfg.n_layers * calls if name == "flash_attention" else 0) for name in counters}
+    if prefill_launches != want:
+        raise SystemExit(f"lm prefill launches {prefill_launches}, want {want}")
+    profile_step(lambda: prefill(params, {"tokens": tokens}), p50, label="lm prefill step")
+    del tokens, logits
+
+    # ------------------------------------------------ d. the serving CLI's loop
+    for c in counters.values():
+        c.n = 0
+    res = serve_cli.main(cli_argv)
+    torch.cuda.synchronize()
+    cli_launches = {name: c.n for name, c in counters.items()}
+    n_prompt, n_gen = res["prompt"].shape[1], res["ids"].shape[1]
+    log(f"lm serve CLI {cli_argv} ({card}): prefill {res['prefill_s'] * 1e3:.3f} ms over {n_prompt} serve steps "
+        f"({res['prefill_s'] * 1e3 / n_prompt:.3f} ms per step), decode {res['decode_s'] / max(n_gen - 1, 1) * 1e3:.3f}"
+        f" ms/token; ids {res['ids'].tolist()}; launches {cli_launches} (decode attention is plain PyTorch)")
+    if res["ids"].shape != (res["prompt"].shape[0], n_gen) or any(cli_launches.values()):
+        raise SystemExit(f"lm serve CLI: ids {res['ids'].shape}, launches {cli_launches}")
+    # one decode step at the CLI's shapes, 33 tokens into a 48-slot cache
+    serve = api.make_serve_step(cfg)
+    b_cli = res["prompt"].shape[0]
+    cache = api.init_cache(cfg, b_cli, n_prompt + n_gen, device=dev)
+    tok = torch.as_tensor(res["ids"][:, :1], device=dev)
+    for t in range(n_prompt + 1):
+        serve(params, cache, tok, t)
+    profile_step(lambda: serve(params, cache, tok, n_prompt + 1), res["decode_s"] / max(n_gen - 1, 1) * 1e3,
+                 label="lm serve step")
+    del params, cache
+
+    # ------------------------------------------------ e. float32 cross-checks
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = lm.init_params(cfg32, seed=seed + 1, device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, 128), device=dev, generator=gen)
+    step32 = api.make_prefill_step(cfg32)
+    card_logits = step32(p32, {"tokens": toks}).float().cpu()
+    t0 = time.perf_counter()
+    cpu_logits = step32(tree_to(p32, "cpu"), {"tokens": toks.cpu()})
+    cpu_s = time.perf_counter() - t0
+    serve32 = api.make_serve_step(cfg32)
+    cache = api.init_cache(cfg32, 1, 128, device=dev)
+    for t in range(128):
+        dec_logits, cache = serve32(p32, cache, toks[:, t:t + 1], t)
+    dec_logits = dec_logits.cpu()
+    scale = float(cpu_logits.abs().max())
+    for label, got, ref in (("card prefill vs CPU prefill", card_logits, cpu_logits),
+                            ("card prefill vs card serve steps", card_logits, dec_logits)):
+        err = float((got - ref).abs().max())
+        log(f"lm cross-check float32 {label} (1 x 128 tokens, {cfg.n_layers} layers): max_abs_err {err:.3e}, "
+            f"relative to max |logit| {scale:.4f}: {err / scale:.3e} (tolerance {LM_CROSS_TOL:g}); "
+            f"argmax equal {bool((got.argmax(-1) == ref.argmax(-1)).all())}")
+        if not err <= LM_CROSS_TOL * scale:
+            raise SystemExit(f"lm cross-check failed: {label}")
+    log(f"lm cross-check: the CPU prefill took {cpu_s:.2f} s")
+    del p32, cache
+
+    # ------------------------------------------------ f. peak memory
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"lm phase ({card}): max_memory_allocated {peak} B, {time.perf_counter() - t_phase:.1f} s")
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/flash_attention.py:23",
+             "launches": prefill_launches["flash_attention"], "max_abs_err": bf16_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+             "library_ms": lib_ms}
+    return {"entry": entry, "lm_prefill": prefill_launches, "lm_serve_cli": cli_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -273,7 +501,9 @@ def main(argv=None) -> int:
         state_to_numpy,
     )
     from repro_torch.data.views import ViewDataset
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.gsproject import ops as gp_ops
     from repro_torch.kernels.gsproject.ref import project_ref
     from repro_torch.kernels.tile_raster import ops as tr_ops
@@ -469,7 +699,7 @@ def main(argv=None) -> int:
         f"warmup {server.warmup(buckets=(1,)):.2f} s")
     clients = make_clients(args.clients, n_views=12, img_h=cfg.img_h, img_w=cfg.img_w, radius_spread=1.0)
     torch.cuda.reset_peak_memory_stats(dev)
-    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = 0
+    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = fa_ops.launch_count.n = 0
     report = run_load(server, clients, requests_per_client=args.requests)
     # a localized update: drop two tile rows of the timestep, then revisit two
     # served poses -> partial hits render only those rows (the strip path)
@@ -477,7 +707,8 @@ def main(argv=None) -> int:
     revisit = [server.submit(camera_slice(cams, i)) for i in range(2)]
     frames_revisit = [f.result() for f in revisit]
     server.run()
-    serve_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+    serve_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n,
+                      fa_ops.launch_count.n)
     gp_launches, tr_launches = serve_launches[:2]
     report = server.report()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -488,9 +719,9 @@ def main(argv=None) -> int:
     for f in frames + frames_revisit:
         if f.shape != (cfg.img_h, cfg.img_w, 3) or not np.isfinite(f).all() or f.min() < -1e-6 or f.max() > 1 + 1e-6:
             raise SystemExit(f"bad frame: shape {f.shape}, range [{f.min()}, {f.max()}]")
-    if gp_launches == 0 or tr_launches == 0 or serve_launches[2]:
-        raise SystemExit(f"serving path launches (gsproject, tile_raster_fwd, tile_raster_bwd) {serve_launches}: "
-                         "want both forward kernels and no backward")
+    if gp_launches == 0 or tr_launches == 0 or serve_launches[2] or serve_launches[3]:
+        raise SystemExit(f"serving path launches (gsproject, tile_raster_fwd, tile_raster_bwd, flash_attention) "
+                         f"{serve_launches}: want both forward kernels, no backward and no attention")
     rendered = report["tiles"]["render_rows"] / (cfg.img_h // cfg.tile_h)  # full-frame equivalents
     lat = report["latency_ms"]
     log(f"serve {name} ({card}): {done} requests, {report['frames_per_s']} frames/s, "
@@ -530,11 +761,12 @@ def main(argv=None) -> int:
     trainer = GSTrainer(tcfg, device=dev, params=host, obs=Obs(), verbose=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = 0
+    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = fa_ops.launch_count.n = 0
     losses = trainer.fit(data, steps=args.train_steps, log_every=1)
     metrics = trainer.evaluate(data, range(args.eval_views))
     torch.cuda.synchronize()
-    train_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+    train_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n,
+                      fa_ops.launch_count.n)
     train_peak = torch.cuda.max_memory_allocated(dev)
     step_ms = trainer.step_ms_log
     log(f"train {name} ({card}): {trainer.state.params.n} Gaussians after {args.train_steps} steps at batch "
@@ -546,9 +778,10 @@ def main(argv=None) -> int:
         log(f"densify round at {r_.n_before} Gaussians: {r_.n_cloned} cloned, {r_.n_split} split, "
             f"{r_.n_pruned} pruned -> {r_.n_after} live, {r_.n_padded} allocated (live set changed: "
             f"{r_.n_cloned + r_.n_split + r_.n_pruned > 0})")
-    want = (4 * args.train_steps + args.eval_views,) * 2 + (4 * args.train_steps,)
+    want = (4 * args.train_steps + args.eval_views,) * 2 + (4 * args.train_steps, 0)
     log(f"launches on the training path: gsproject {train_launches[0]}, tile_raster_fwd {train_launches[1]}, "
-        f"tile_raster_bwd {train_launches[2]} (want {want}: 4 per step each, plus one forward per eval view)")
+        f"tile_raster_bwd {train_launches[2]}, flash_attention {train_launches[3]} (want {want}: 4 per step each, "
+        "plus one forward per eval view, and no attention)")
     if not np.isfinite(losses).all() or len(losses) != args.train_steps:
         raise SystemExit(f"training losses not finite: {losses}")
     if train_launches != want:
@@ -653,23 +886,35 @@ def main(argv=None) -> int:
     if abs(l_k - l_c) > 1e-5 * abs(l_c) or gbad:
         raise SystemExit("card train step after a resizing densify round disagrees with the CPU path")
 
+    # ---------------------------------------------------------- 7. lm
+    counters = {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count,
+                "tile_raster_bwd": tr_ops.bwd_launch_count, "flash_attention": fa_ops.launch_count}
+    lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
+                      ["--arch", "qwen3-0.6b", "--device", "cuda", "--seed", str(args.seed)], counters)
+
     # ---------------------------------------------------------- 6. result
     log(f"total {time.perf_counter() - t_all:.1f} s")
+
+    def by_path(i: int, name: str) -> dict:
+        return {"serve": serve_launches[i], "train": train_launches[i], "lm_prefill": lm_res["lm_prefill"][name],
+                "lm_serve_cli": lm_res["lm_serve_cli"][name]}
+
     kernels = [
         {"name": "gsproject", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",
          "replaces": "src/repro/kernels/gsproject/gsproject.py:24", "launches": train_launches[0],
-         "launches_by_path": {"serve": serve_launches[0], "train": train_launches[0]},
+         "launches_by_path": by_path(0, "gsproject"),
          "max_abs_err": gp_err, "ms": gp_ms, "plain_ms": gp_plain_ms,
          "bound_ms": max(gp_bound_bytes, gp_bound_ops),
          "bound_by": "bytes" if gp_bound_bytes >= gp_bound_ops else "operations", "library_ms": None},
         {"name": "tile_raster_fwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/tile_raster.cu",
          "replaces": "src/repro/kernels/tile_raster/tile_raster.py:102", "launches": train_launches[1],
-         "launches_by_path": {"serve": serve_launches[1], "train": train_launches[1]},
+         "launches_by_path": by_path(1, "tile_raster_fwd"),
          "max_abs_err": tr_err, **tr["frame"], "library_ms": None},
         {"name": "tile_raster_bwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/tile_raster.cu",
          "replaces": "src/repro/kernels/tile_raster/tile_raster.py:117", "launches": train_launches[2],
-         "launches_by_path": {"serve": serve_launches[2], "train": train_launches[2]},
+         "launches_by_path": by_path(2, "tile_raster_bwd"),
          "max_abs_err": bwd_err, **trb["frame"], "library_ms": None},
+        {**lm_res["entry"], "launches_by_path": by_path(3, "flash_attention")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -32,6 +32,7 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES = (
     _KERNELS_DIR / "gsproject" / "gsproject.cu",
     _KERNELS_DIR / "tile_raster" / "tile_raster.cu",
+    _KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 )
 # src/repro_torch/kernels -> the checkout root
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -60,6 +61,10 @@ SIGNATURES = {
     # splats_t (T,11,K), valid (T,K), gout (T,3,P), gtfin (T,P), dsplats
     # (T,11,K), n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
     "tile_raster_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q (B,S,H,hd), k, v (B,Skv,Hkv,hd), out (B,S,H,hd), batch, s, skv,
+    # heads, kv_heads, head_dim, is_bf16, causal, window (< 0: none),
+    # q_offset, scale, stream
+    "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

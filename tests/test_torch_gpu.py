@@ -1,6 +1,7 @@
 """PyTorch port, on the card: each hand-written CUDA kernel against its plain
-PyTorch version, the serving path through the forward kernels, and a train
-step through all three kernels against the same step on the CPU.
+PyTorch version, the serving path through the forward kernels, a train
+step through the three splatting kernels against the same step on the CPU,
+and the LM prefill step through the attention kernel against the CPU.
 
 Every test here needs a CUDA device and skips without one (the decision is
 made inside the ``cuda_device`` fixture, so every xdist worker collects the
@@ -28,11 +29,16 @@ from repro_torch.core.train import (
     state_from_numpy,
     state_to_numpy,
 )
+from repro_torch.configs import get_arch
 from repro_torch.kernels import _lib
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gsproject import ops as gp_ops
 from repro_torch.kernels.gsproject.ref import project_ref
 from repro_torch.kernels.tile_raster import ops as tr_ops
 from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref
+from repro_torch.models import api, lm
+from repro_torch.models.params import tree_to
 from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
 
 torch.set_num_threads(2)
@@ -75,7 +81,7 @@ def test_kernel_library_builds_and_loads(cuda_device):
     build = _lib.build_library()
     assert build.path.exists()
     lib = _lib.library()
-    assert lib.gsproject_fwd and lib.tile_raster_fwd and lib.tile_raster_bwd
+    assert lib.gsproject_fwd and lib.tile_raster_fwd and lib.tile_raster_bwd and lib.flash_attention_fwd
 
 
 @pytest.mark.parametrize("n", [1000, 4096, 100_003])
@@ -320,3 +326,94 @@ def test_train_step_after_densify_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(st_k[0], st_c[0], atol=2e-5 * np.abs(st_c[0]).max(), rtol=2e-4)
     np.testing.assert_array_equal(st_k[1], st_c[1])
     np.testing.assert_array_equal(st_k[2], st_c[2])
+
+
+# the JAX flash-attention kernel test's sweep, (B, S, Skv, H, Hkv, hd, causal,
+# window), with q_offset = Skv - S; then Skv 9000, where the JAX wrapper
+# falls back to its oracle and the CUDA kernel still runs
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, True, None),
+    (1, 256, 256, 4, 2, 32, True, None),
+    (2, 128, 128, 2, 2, 64, True, 32),
+    (1, 64, 128, 2, 2, 32, True, None),
+    (1, 128, 128, 4, 1, 64, False, None),
+    (1, 100, 100, 2, 2, 64, True, None),
+    (1, 64, 9000, 1, 1, 32, True, None),
+]
+
+
+def _qkv(b, s, skv, h, hkv, hd, seed, device, dtype=torch.float32):
+    r = np.random.default_rng(seed)
+    return [torch.tensor(r.normal(size=shape).astype(np.float32), device=device).to(dtype)
+            for shape in ((b, s, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd))]
+
+
+@pytest.mark.parametrize("b,s,skv,h,hkv,hd,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, s, skv, h, hkv, hd, causal, window):
+    q, k, v = _qkv(b, s, skv, h, hkv, hd, s + skv, cuda_device)
+    kw = dict(causal=causal, window=window, q_offset=skv - s)
+    before = fa_ops.launch_count.n
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count.n == before + 1
+    want = attention_ref(q, k, v, **kw)
+    want_cpu = attention_ref(*[x.cpu() for x in (q, k, v)], **kw)
+    for w in (want.cpu().numpy(), want_cpu.numpy()):
+        # the JAX kernel test's tolerance
+        np.testing.assert_allclose(got.cpu().numpy(), w, atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
+def test_flash_attention_kernel_matches_plain_at_the_model_shape(cuda_device, dtype, atol, rtol):
+    """Qwen3-0.6B's prefill shape: B 4, S = Skv 4096, 16 query and 8 KV heads,
+    hd 128, causal. bfloat16 outputs differ where the float32 results round
+    to neighbouring bfloat16 values (one step is up to 2^-7 relative)."""
+    q, k, v = _qkv(4, 4096, 4096, 16, 8, 128, 1, cuda_device, dtype)
+    got = fa_ops.flash_attention(q, k, v)
+    want = attention_ref(q, k, v)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=rtol)
+    assert torch.equal(fa_ops.flash_attention(q, k, v), got)  # no atomics: two launches bitwise equal
+
+
+def test_flash_attention_gradient_on_card_matches_plain(cuda_device):
+    """The autograd.Function (kernel forward, the plain version's VJP
+    backward) against autograd through the plain version, with GQA and a
+    window."""
+    q, k, v = _qkv(2, 96, 160, 4, 2, 64, 7, cuda_device)
+    gout = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(0))
+    kw = dict(causal=True, window=48, q_offset=64)
+    grads = []
+    for fn in (fa_ops.flash_attention, attention_ref):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, **kw), leaves, gout))
+    for a, b_ in zip(*grads):
+        np.testing.assert_allclose(a.cpu().numpy(), b_.cpu().numpy(), atol=2e-5 * float(b_.abs().max()), rtol=2e-4)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _qkv(1, 16, 16, 2, 2, 48, 0, cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, k, v)
+    q, k, v = _qkv(1, 16, 16, 2, 2, 32, 0, cuda_device)
+    with pytest.raises(ValueError, match="no unmasked key"):
+        fa_ops.flash_attention(q, k, v, q_offset=-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b"])
+def test_smoke_prefill_on_card_matches_cpu(cuda_device, arch):
+    """The smoke config's prefill step (float32, 2 layers) through the
+    attention kernel on the card against the plain versions on the CPU, at
+    the LM parity tests' tolerance; one kernel launch per layer."""
+    cfg = get_arch(arch).smoke_config()
+    params = lm.init_params(cfg, seed=0)
+    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 48)))
+    step = api.make_prefill_step(cfg)
+    want = step(params, {"tokens": toks})
+    card = tree_to(params, cuda_device)
+    before = fa_ops.launch_count.n
+    got = step(card, {"tokens": toks.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count.n == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
