@@ -16,7 +16,8 @@ output is one JSON object ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as JSON.
 
 Phases, in order (any failure exits non-zero):
-  1. card name and power limit; kernel build and its time;
+  1. card name and power limit; kernel build and its time; the bf16
+     attention instances' registers and spill bytes from ptxas;
   2. each kernel against its plain version at the main path's shapes (the
      rasterizer backward with d(out) from a real loss and a random one);
   3. each kernel and its plain version timed with CUDA events;
@@ -32,10 +33,13 @@ Phases, in order (any failure exits non-zero):
      that clones, splits and prunes followed by one more step, each checked
      against the port's CPU path;
   7. lm: the attention kernel against its plain version (the JAX kernel
-     test's sweep, Skv 9000, the model's own prefill shape in float32 and
-     bfloat16, two launches bitwise equal, the autograd.Function's
-     gradient), timed beside its plain version, its bound and PyTorch's
-     ``scaled_dot_product_attention``; Qwen3-0.6B at full width (28 layers,
+     test's sweep, Skv 9000, a 1024-key window and a ragged long case at
+     hd 128, each in float32 on the CUDA-core kernel and in bfloat16 on the
+     tensor-core kernel with its bitwise-equal share; the model's own
+     prefill shape in both types, two launches bitwise equal, the
+     autograd.Function's gradient), timed beside its plain version, its
+     bound and PyTorch's ``scaled_dot_product_attention`` (the float32
+     kernel timed at the same shape); Qwen3-0.6B at full width (28 layers,
      bfloat16, random weights from ``--seed``) through ``make_prefill_step``
      at batch 4 x 4096 tokens with the launch counters zeroed just before
      and read just after (one attention launch per layer and call), and
@@ -54,6 +58,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -268,7 +273,10 @@ def image_layout(raw: torch.Tensor, tfin: torch.Tensor, h: int, w: int, th: int,
 
 # the JAX flash-attention kernel test's sweep, (B, S, Skv, H, Hkv, hd, causal,
 # window) with q_offset = Skv - S, then Skv 9000 (where the JAX wrapper falls
-# back to its oracle)
+# back to its oracle), a Gemma3-style 1024-key window at hd 128, a ragged
+# long case (S 100 over Skv 9000) at hd 128 and a ragged batch of two (the
+# tensor maps' batch edge); each in float32 (the CUDA-core kernel) and
+# bfloat16 (the tensor-core kernel)
 FLASH_CASES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 4, 2, 32, True, None),
@@ -277,11 +285,29 @@ FLASH_CASES = [
     (1, 128, 128, 4, 1, 64, False, None),
     (1, 100, 100, 2, 2, 64, True, None),
     (1, 64, 9000, 1, 1, 32, True, None),
+    (1, 2048, 2048, 4, 2, 128, True, 1024),
+    (1, 100, 9000, 2, 1, 128, True, None),
+    (2, 300, 300, 2, 1, 128, True, None),
 ]
 FLASH_F32_TOL = (2e-5, 2e-4)    # atol, rtol: the JAX kernel test's
-FLASH_BF16_TOL = (1e-2, 1.6e-2)  # one bfloat16 step is up to 2^-7 relative
+FLASH_BF16_TOL = (1e-2, 1.6e-2)  # one bfloat16 step is up to 2^-7 relative; P is rounded to bf16
 LM_CROSS_TOL = 1e-3             # float32 logits: max |difference| <= this x max |logit|
 LM_BATCH, LM_SEQ = 4, 4096      # the prefill step's batch and prompt length
+
+
+def ptxas_entries(log_text: str) -> dict:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: registers, spill
+    store and load bytes, keyed by the mangled name."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def attention_pairs(s: int, skv: int, causal: bool, window, q_offset: int) -> int:
@@ -325,11 +351,13 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
     # ------------------------------------------------ a. kernel vs plain
     for c in FLASH_CASES:
         b, s, skv, h, hkv, hd, causal, window = c
-        compare("case", *qkv(b, s, skv, h, hkv, hd), dict(causal=causal, window=window, q_offset=skv - s),
-                FLASH_F32_TOL)
+        for dtype, tol in ((torch.float32, FLASH_F32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
+            compare("case", *qkv(b, s, skv, h, hkv, hd, dtype), dict(causal=causal, window=window, q_offset=skv - s),
+                    tol)
     shape = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-    compare("model shape", *qkv(*shape), {}, FLASH_F32_TOL)
-    q, k, v = qkv(*shape, dtype=torch.bfloat16)
+    q32, k32, v32 = qkv(*shape)
+    compare("model shape", q32, k32, v32, {}, FLASH_F32_TOL)
+    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
     bf16_err, out = compare("model shape", q, k, v, {}, FLASH_BF16_TOL)
     if not torch.equal(fa_ops.flash_attention(q, k, v), out):
         raise SystemExit("flash_attention: two launches on the same inputs differ")
@@ -349,6 +377,7 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
 
     # ------------------------------------------------ b. time at the prefill shape
     ms = cuda_ms(lambda: fa_ops.launch(q, k, v), 10, "flash_attention kernel")
+    f32_ms = cuda_ms(lambda: fa_ops.launch(q32, k32, v32), 3, "flash_attention float32 kernel")
     plain_ms = wall_ms(lambda: attention_ref(q, k, v), 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 10,
@@ -366,7 +395,10 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
         f"scaled_dot_product_attention {lib_ms:.4f} ms (max |difference| from the kernel {lib_err:.3e}), bound "
         f"{bound:.4f} ms ({'operations' if b_ops >= b_bytes else 'bytes'}: {flops} flops = 4 x hd x {pairs} unmasked "
         f"pairs x B x H at 989 TFLOP/s -> {b_ops:.4f} ms; {nbytes} B of q, k, v, o at 3.35 TB/s -> {b_bytes:.4f} ms)")
-    del q, k, v, qt, kt, vt, out, gq, gk, gv, grads
+    log(f"time flash_attention {tuple(q.shape)} kv {tuple(k.shape)} float32 causal ({card}): CUDA-core kernel "
+        f"{f32_ms:.4f} ms ({flops / f32_ms / 1e9:.2f} TFLOP/s of counted work; bound {flops / H100_FP32_PER_S * 1e3:.4f}"
+        f" ms at 67 TFLOP/s float32)")
+    del q, k, v, q32, k32, v32, qt, kt, vt, out, gq, gk, gv, grads
 
     # ------------------------------------------------ c. prefill at full width
     t0 = time.perf_counter()
@@ -460,7 +492,7 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
              "replaces": "src/repro/kernels/flash_attention/flash_attention.py:23",
              "launches": prefill_launches["flash_attention"], "max_abs_err": bf16_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-             "library_ms": lib_ms}
+             "library_ms": lib_ms, "float32_ms": f32_ms}
     return {"entry": entry, "lm_prefill": prefill_launches, "lm_serve_cli": cli_launches}
 
 
@@ -524,8 +556,14 @@ def main(argv=None) -> int:
     build = _lib.build_library()
     log(f"build: {build.seconds:.3f} s -> {build.path.relative_to(ROOT)}")
     for line in build.log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line or "warning" in line:
             log(f"  ptxas: {line.strip()}")
+    for entry, e in ptxas_entries(build.log).items():
+        if "attention_tc_kernel" in entry:
+            hd = re.search(r"attention_tc_kernelILi(\d+)E", entry).group(1)
+            log(f"ptxas: bf16 tensor-core attention, hd {hd}: {e.get('registers')} registers at entry (setmaxnreg: "
+                f"consumers 240, producer 24), spill stores {e.get('spill_stores')} B, spill loads "
+                f"{e.get('spill_loads')} B")
     _lib.library()
 
     # ---------------------------------------------------------- scene

@@ -2,10 +2,11 @@
 
 Every ``.cu`` file under ``kernels/`` exposes ``extern "C"`` launchers that
 take raw device pointers and a CUDA stream and return ``cudaGetLastError()``.
-All of them are compiled by ONE ``nvcc -shared`` call for ``sm_90a`` into
-``build/repro_torch_kernels/`` at the root of the checkout, on first use, and
-the library is loaded with ``ctypes``. Nothing here includes PyTorch's
-headers, so the build takes seconds, not minutes.
+Each source is compiled for ``sm_90a`` by its own ``nvcc -c``, all of them
+started together, and one more ``nvcc -shared`` links the objects into one
+library in ``build/repro_torch_kernels/`` at the root of the checkout, on
+first use; the library is loaded with ``ctypes``. Nothing here includes
+PyTorch's headers, so the build takes seconds, not minutes.
 
 The library file name carries a hash of the sources and flags: an edited
 source builds a new library, and a stale one is never loaded. Concurrent
@@ -43,7 +44,7 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -72,7 +73,7 @@ SIGNATURES = {
 class Build:
     path: Path
     seconds: float   # 0.0 when an up-to-date library was already on disk
-    log: str         # nvcc's output (ptxas register / shared-memory report)
+    log: str         # nvcc's output (ptxas register / shared-memory report), kept beside the library
 
 
 def find_nvcc() -> str:
@@ -97,24 +98,34 @@ def build_library() -> Build:
     """Compile every kernel source into one shared library (if not yet built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+    log_path = path.with_suffix(".log")
     if path.exists():
-        return Build(path, 0.0, "")
+        return Build(path, 0.0, log_path.read_text() if log_path.exists() else "")
     nvcc = find_nvcc()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, out in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({p.returncode}):\n{out}")
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        Path(f"{tmp}.log").write_text("".join(logs))
+        os.replace(f"{tmp}.log", log_path)
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return Build(path, time.perf_counter() - t0, proc.stdout + proc.stderr)
+        for f in (tmp, f"{tmp}.log", *objs):
+            if os.path.exists(f):
+                os.unlink(f)
+    return Build(path, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.lru_cache(maxsize=1)

@@ -4,8 +4,10 @@
 hd) and k, v (B, Skv, Hkv, hd) and returns (B, S, H, hd) in q's dtype. On
 CPU tensors it runs the plain version (``ref.attention_ref``); on CUDA
 tensors it runs ``flash_attention.cu`` on the tensors' own layout (no head
-repetition, no padding, no transpose), or raises. There is no length limit
-and no fallback: the kernel streams K and V through shared memory.
+repetition, no padding, no transpose), or raises: bfloat16 on the tensor
+cores (TMA loads, so the base pointers must be 16-byte aligned), float32 on
+the CUDA cores. There is no length limit and no fallback: the kernels stream
+K and V through shared memory.
 
 It is a ``torch.autograd.Function`` on both devices whose backward is the
 vector-Jacobian product of the plain version, recomputed from the saved
@@ -58,6 +60,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
         raise ValueError(f"the kernel takes {DTYPES}, got {q.dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS}, got {hd}")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name}: the bfloat16 kernel reads through TMA and needs a 16-byte-aligned "
+                                 f"base pointer, got {x.data_ptr():#x}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if s == 0 or b * h == 0:

@@ -11,6 +11,13 @@ two round them: at most one bfloat16 step apart (2^-7 relative at most),
 and at least 99% bitwise equal, which pins the order the oracle takes (q
 cast to float32, then scaled; scaling in bfloat16 first leaves only ~60%
 equal and many entries two steps apart).
+
+The two CUDA kernels' schedules are emulated in float32 on the CPU: the
+float32 kernel's (64-row, 64-key blocks) against the plain version at the
+float32 tolerance, and the bfloat16 tensor-core kernel's (128-row blocks in
+two 64-row halves, 128-key blocks, masks only where the kernel masks, P
+rounded to bf16) against the JAX oracle on bf16 inputs at the card's
+bfloat16 tolerance, atol 1e-2, rtol 1.6e-2.
 """
 import jax
 import jax.numpy as jnp
@@ -181,3 +188,88 @@ def test_kernel_algorithm_matches_plain_version(b, s, skv, h, hkv, hd, causal, w
     assert fa_ops._rows_reach_a_key(s, skv, causal, window, q_offset)
     np.testing.assert_allclose(np_(_kernel_algorithm(q, k, v, **kw)), np_(attention_ref(q, k, v, **kw)),
                                atol=ATOL, rtol=RTOL)
+
+
+def _tensor_core_algorithm(q, k, v, *, causal, window, q_offset, bq=128, bk=128, wg_rows=64):
+    """A float32 emulation of the bfloat16 kernel of ``flash_attention.cu``
+    (the tensor-core schedule): blocks of ``bq`` query rows in two halves of
+    ``wg_rows`` (one per consumer warpgroup), ``bk``-key blocks from the
+    window's lower bound rounded down to a block to the causal bound, keys
+    and values past Skv zero (as the TMA fills them). Raw bf16 q.k in
+    float32, scaled inside exp2 as s * scale*log2e - m * scale*log2e; the
+    element masks only in the blocks the kernel masks (crossing Skv, the
+    causal diagonal or a window edge for the half's rows), no mask
+    arithmetic elsewhere; l from the unrounded p, P rounded to bf16 before
+    P V, float32 accumulators; out = acc * (1 / max(l, 1e-30)) in bf16.
+    Returns the output and the counts of (half, block) pairs run with and
+    without masks and of key blocks skipped."""
+    b, s, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    c = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32) * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    pad = -skv % bk
+    kz = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vz = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    n_kv_blocks = (skv + pad) // bk
+    out = torch.empty((b, s, h, hd))
+    counts = {"masked": 0, "unmasked": 0, "skipped": 0}
+    for bi in range(b):
+        for hi in range(h):
+            qs = q[bi, :, hi].float()
+            ks, vs = kz[bi, :, hi // group], vz[bi, :, hi // group]
+            for q0 in range(0, s, bq):
+                n_q = min(bq, s - q0)
+                lo = max(q_offset + q0 - window + 1, 0) // bk * bk if window is not None else 0
+                hi_ = min(q_offset + q0 + n_q, skv) if causal else skv
+                blocks = range(lo, hi_, bk)
+                counts["skipped"] += n_kv_blocks - len(blocks)
+                for w0 in range(q0, q0 + n_q, wg_rows):
+                    rows = torch.arange(w0, min(w0 + wg_rows, s))
+                    pos = q_offset + rows
+                    first, last = q_offset + w0, q_offset + w0 + wg_rows - 1
+                    m = torch.full((len(rows),), -1e30)
+                    l = torch.zeros(len(rows))
+                    acc = torch.zeros((len(rows), hd))
+                    for kv0 in blocks:
+                        kpos = torch.arange(kv0, kv0 + bk)
+                        sc = qs[rows] @ ks[kpos].T
+                        if (kv0 + bk > skv or (causal and kv0 + bk - 1 > first)
+                                or (window is not None and last - kv0 >= window)):
+                            counts["masked"] += 1
+                            ok = (kpos < skv)[None].expand_as(sc)
+                            if causal:
+                                ok = ok & (kpos[None] <= pos[:, None])
+                            if window is not None:
+                                ok = ok & (pos[:, None] - kpos[None] < window)
+                            sc = torch.where(ok, sc, -1e30)
+                        else:
+                            counts["unmasked"] += 1
+                        m_new = torch.maximum(m, sc.amax(1))
+                        corr = torch.exp2((m - m_new) * c)
+                        p = torch.exp2(sc * c - (m_new * c)[:, None])
+                        l = l * corr + p.sum(1)
+                        acc = acc * corr[:, None] + p.to(torch.bfloat16).float() @ vs[kpos]
+                        m = m_new
+                    out[bi, rows, hi] = acc * (1.0 / torch.clamp(l, min=1e-30))[:, None]
+    return out.to(torch.bfloat16), counts
+
+
+@pytest.mark.parametrize("b,s,skv,h,hkv,hd,causal,window", [
+    *CASES,
+    (1, 1536, 1536, 2, 1, 128, True, 1024),  # a Gemma3-style 1024-key window at hd 128: blocks skipped
+])
+def test_tensor_core_algorithm_matches_jax_chunked_attention(b, s, skv, h, hkv, hd, causal, window):
+    """The bfloat16 kernel's numerics (P rounded to bf16, raw q.k scaled in
+    exp2, masks only where the kernel masks) against the JAX oracle on bf16
+    inputs, at the card's bfloat16 tolerance (atol 1e-2, rtol 1.6e-2: one
+    bf16 step is up to 2^-7 relative, and rounding P adds up to another)."""
+    q, k, v = _mk(b, s, skv, h, hkv, hd, seed=s + hd)
+    off = skv - s
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax.jit(lambda q, k, v: j_chunked(q, k, v, causal=causal, window=window, q_offset=off))(
+        jq, jk, jv).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16) for x in (jq, jk, jv))
+    got, counts = _tensor_core_algorithm(tq, tk, tv, causal=causal, window=window, q_offset=off)
+    np.testing.assert_allclose(np_(got.float()), want, atol=1e-2, rtol=1.6e-2)
+    if window == 1024:  # masked, unmasked and skipped blocks are all reached
+        assert min(counts.values()) > 0, counts

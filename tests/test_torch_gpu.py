@@ -330,7 +330,10 @@ def test_train_step_after_densify_on_card_matches_cpu(cuda_device):
 
 # the JAX flash-attention kernel test's sweep, (B, S, Skv, H, Hkv, hd, causal,
 # window), with q_offset = Skv - S; then Skv 9000, where the JAX wrapper
-# falls back to its oracle and the CUDA kernel still runs
+# falls back to its oracle and the CUDA kernel still runs; a Gemma3-style
+# 1024-key window at hd 128; a ragged long case (S 100 over Skv 9000, q_offset
+# 8900) at hd 128; a ragged batch of two, where rows past S must not reach
+# the next batch element (the bf16 kernel's tensor maps bound each one)
 FLASH_CASES = [
     (2, 128, 128, 4, 4, 64, True, None),
     (1, 256, 256, 4, 2, 32, True, None),
@@ -339,7 +342,14 @@ FLASH_CASES = [
     (1, 128, 128, 4, 1, 64, False, None),
     (1, 100, 100, 2, 2, 64, True, None),
     (1, 64, 9000, 1, 1, 32, True, None),
+    (1, 2048, 2048, 4, 2, 128, True, 1024),
+    (1, 100, 9000, 2, 1, 128, True, None),
+    (2, 300, 300, 2, 1, 128, True, None),
 ]
+# float32 (the CUDA-core kernel): the JAX kernel test's tolerance; bfloat16
+# (the tensor-core kernel): one bf16 step is up to 2^-7 relative, and the
+# kernel rounds P to bf16 before P V
+FLASH_TOLS = [(torch.float32, 2e-5, 2e-4), (torch.bfloat16, 1e-2, 1.6e-2)]
 
 
 def _qkv(b, s, skv, h, hkv, hd, seed, device, dtype=torch.float32):
@@ -348,32 +358,48 @@ def _qkv(b, s, skv, h, hkv, hd, seed, device, dtype=torch.float32):
             for shape in ((b, s, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd))]
 
 
+@pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
 @pytest.mark.parametrize("b,s,skv,h,hkv,hd,causal,window", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(cuda_device, b, s, skv, h, hkv, hd, causal, window):
-    q, k, v = _qkv(b, s, skv, h, hkv, hd, s + skv, cuda_device)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, s, skv, h, hkv, hd, causal, window, dtype, atol, rtol):
+    q, k, v = _qkv(b, s, skv, h, hkv, hd, s + skv, cuda_device, dtype)
     kw = dict(causal=causal, window=window, q_offset=skv - s)
     before = fa_ops.launch_count.n
     got = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa_ops.launch_count.n == before + 1
+    assert got.dtype == dtype
     want = attention_ref(q, k, v, **kw)
     want_cpu = attention_ref(*[x.cpu() for x in (q, k, v)], **kw)
-    for w in (want.cpu().numpy(), want_cpu.numpy()):
-        # the JAX kernel test's tolerance
-        np.testing.assert_allclose(got.cpu().numpy(), w, atol=2e-5, rtol=2e-4)
+    for w in (want.float().cpu().numpy(), want_cpu.float().numpy()):
+        np.testing.assert_allclose(got.float().cpu().numpy(), w, atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 2e-4), (torch.bfloat16, 1e-2, 1.6e-2)])
+@pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
 def test_flash_attention_kernel_matches_plain_at_the_model_shape(cuda_device, dtype, atol, rtol):
     """Qwen3-0.6B's prefill shape: B 4, S = Skv 4096, 16 query and 8 KV heads,
-    hd 128, causal. bfloat16 outputs differ where the float32 results round
-    to neighbouring bfloat16 values (one step is up to 2^-7 relative)."""
+    hd 128, causal."""
     q, k, v = _qkv(4, 4096, 4096, 16, 8, 128, 1, cuda_device, dtype)
     got = fa_ops.flash_attention(q, k, v)
     want = attention_ref(q, k, v)
     assert got.dtype == dtype
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=rtol)
     assert torch.equal(fa_ops.flash_attention(q, k, v), got)  # no atomics: two launches bitwise equal
+
+
+def test_flash_attention_bf16_kernel_refuses_a_misaligned_base_pointer(cuda_device):
+    """The bfloat16 kernel reads through TMA, whose tensor maps need a
+    16-byte-aligned base: a contiguous view one element into its storage is
+    refused, and the same values at an aligned base run."""
+    q, k, v = _qkv(1, 64, 64, 2, 2, 64, 3, cuda_device, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, device=cuda_device, dtype=torch.bfloat16)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa_ops.flash_attention(shifted, k, v)
+    got = fa_ops.flash_attention(shifted.clone(), k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(), attention_ref(q, k, v).float().cpu().numpy(),
+                               atol=1e-2, rtol=1.6e-2)
 
 
 def test_flash_attention_gradient_on_card_matches_plain(cuda_device):
