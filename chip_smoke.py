@@ -16,11 +16,20 @@ output is one JSON object ``{"ok": true, "device": {...}}``; the line
 before it holds the kernels' numbers as JSON.
 
 Phases, in order (any failure exits non-zero):
-  1. card name and power limit; kernel build and its time; the bf16
-     attention instances' registers and spill bytes from ptxas;
-  2. each kernel against its plain version at the main path's shapes (the
-     rasterizer backward with d(out) from a real loss and a random one);
-  3. each kernel and its plain version timed with CUDA events;
+  1. card name and power limit; kernel build and its time; the rasterizer
+     kernels' and the bf16 attention instances' registers and spill bytes
+     from ptxas; the rasterizer kernels' resident CTAs per SM;
+  2. each kernel against its plain version at the main path's shapes: the
+     rasterizer forward at atol 3e-6 / rtol 1e-5 on every pixel and channel
+     of the frame, a strip, the flat lists and a dense slab (the view an
+     isosurface fills: 1,024 tiles, K 256, every slot valid; and at K 250,
+     staged by 4-byte copies), its n_contrib
+     equal to the plain version's and two launches bitwise equal; the
+     backward fed the forward's residuals, with d(out) from a real loss and
+     a random one, two launches bitwise equal;
+  3. each kernel and its plain version timed with CUDA events; for the
+     rasterizer, per-tile load (valid entries and alpha evaluations: max,
+     p99, p50, mean) and each kernel's time on the densest tile alone;
   4. serving: a few orbit clients through the port's RenderServer, with
      the launch counters zeroed just before and read just after, a strip
      bitwise equal to its full-frame rows, and a small render checked
@@ -78,7 +87,8 @@ GSPROJECT_OPS_PER_GAUSSIAN = 130  # mul/add/compare incl. 5 exp/rsqrt/sqrt, 2 di
 RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T update, 3 color FMAs
 # backward, per composited (pixel, splat): the alpha recomputed (15), T by
 # division, w, dw and the color grads (11), d(alpha) and B (5), d(power) and
-# the five geometry grads (17), and the nine sums over the tile's pixels (9)
+# the five geometry grads (17), and the nine sums over the tile's pixels (9);
+# it starts from the forward's t_final and n_contrib, so no forward walk
 RASTER_BWD_OPS_PER_HIT = 66
 SPIN_CYCLES = 200_000_000         # ~0.1 s at the H100's clock, longer than the timed enqueues
 RASTER_FIELDS_READ = 9            # mx, my, conic a/b/c, opacity, r, g, b (not depth, radius)
@@ -248,12 +258,74 @@ def raster_bytes(valid: torch.Tensor, p: int) -> int:
 
 
 def raster_bwd_bytes(valid: torch.Tensor, p: int) -> int:
-    """Bytes the rasterizer backward must move: what the forward reads (valid
-    mask, 9 fields of each valid entry), d(rgb) (T, 3, P) and d(t_final)
-    (T, P) read, and the (T, 11, K) gradient slab written."""
+    """Bytes the rasterizer backward's function must move, as the Pallas
+    kernel's ``_run_bwd`` takes it: what the forward reads (valid mask, 9
+    fields of each valid entry), d(rgb) (T, 3, P) and d(t_final) (T, P) read,
+    and the (T, 11, K) gradient slab written. The port's own residuals
+    (t_final, n_contrib) are a design choice, not part of the function."""
     n_valid = int((valid > 0.5).sum())
     t_count, k = valid.shape
     return valid.numel() * 4 + n_valid * RASTER_FIELDS_READ * 4 + t_count * 4 * p * 4 + t_count * 11 * k * 4
+
+
+RASTER_ATOL, RASTER_RTOL = 3e-6, 1e-5  # the North star's forward tolerance (tests/test_tile_raster_kernel.py)
+
+
+def raster_fwd_report(out_k, t_k, out_p, t_p, stop: torch.Tensor):
+    """The rasterizer forward against its plain version at atol 3e-6 / rtol
+    1e-5 on every pixel and channel of rgb (T, 3, P) and t_final (T, P):
+    (max |difference|, entries outside, a line for each of the first pixels
+    outside with its T from both and its stop index, the first slot the stop
+    rule drops, from ``composited_counts``)."""
+    if not (torch.isfinite(out_k).all() and torch.isfinite(t_k).all()):
+        raise SystemExit("tile_raster: the kernel wrote a non-finite value")
+    d_rgb, d_t = (out_k - out_p).abs(), (t_k - t_p).abs()
+    bad_rgb = d_rgb > RASTER_ATOL + RASTER_RTOL * out_p.abs()
+    bad_t = d_t > RASTER_ATOL + RASTER_RTOL * t_p.abs()
+    lines = [f"tile {t} pixel {p}: T kernel {float(t_k[t, p]):.9e}, plain {float(t_p[t, p]):.9e}; stop index "
+             f"{int(stop[t, p])}; rgb kernel {out_k[t, :, p].tolist()}, plain {out_p[t, :, p].tolist()}"
+             for t, p in (bad_rgb.any(dim=1) | bad_t).nonzero()[:8].tolist()]
+    return float(torch.maximum(d_rgb.max(), d_t.max())), int(bad_rgb.sum() + bad_t.sum()), lines
+
+
+def dense_slab(dev, seed: int, tiles_x: int, tiles_y: int, tile: int, k: int):
+    """The view an isosurface fills, as kernel input: tiles_x * tiles_y tiles
+    of tile x tile pixels with K splats each, every slot valid, each mean
+    inside its tile, footprints (sigma 10-20 px) that cover the tile, and
+    opacities 0.02-0.08, with which the median pixel composites ~216 splats
+    before the 1e-4 stop. Made on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = tiles_x * tiles_y
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((t, k), device=dev, generator=gen)
+
+    tid = torch.arange(t, device=dev)[:, None]
+    s = torch.zeros((t, 11, k), device=dev)
+    s[:, 0] = (tid % tiles_x) * tile + u(0, tile)
+    s[:, 1] = (tid // tiles_x) * tile + u(0, tile)
+    sx, sy = u(10, 20), u(10, 20)
+    s[:, 2] = 1 / (sx * sx)
+    s[:, 3] = u(-0.3, 0.3) / (sx * sy)  # correlation within +-0.3
+    s[:, 4] = 1 / (sy * sy)
+    s[:, 5] = u(0.02, 0.08)
+    s[:, 6:9] = torch.rand((t, 3, k), device=dev, generator=gen)
+    s[:, 9] = torch.arange(k, device=dev) + 1.0  # depth, front to back
+    s[:, 10] = 3 * torch.maximum(sx, sy)
+    return s, torch.ones((t, k), device=dev)
+
+
+def tile_load(vf: torch.Tensor, counts: torch.Tensor):
+    """Per tile: its valid count and its alpha evaluations (each pixel walks
+    the valid prefix until its stop, as ``raster_evals`` counts)."""
+    kv = (vf > 0.5).sum(dim=1)
+    return kv, torch.minimum(kv[:, None], counts + 1).sum(dim=1)
+
+
+def stats_line(x: torch.Tensor) -> str:
+    x = x.double()
+    return (f"max {float(x.max()):.0f}, p99 {float(torch.quantile(x, 0.99)):.1f}, "
+            f"p50 {float(torch.quantile(x, 0.5)):.1f}, mean {float(x.mean()):.2f}")
 
 
 def grad_report(got: torch.Tensor, want: torch.Tensor):
@@ -539,7 +611,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.gsproject import ops as gp_ops
     from repro_torch.kernels.gsproject.ref import project_ref
     from repro_torch.kernels.tile_raster import ops as tr_ops
-    from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref, composited_counts
+    from repro_torch.kernels.tile_raster.ref import (
+        composite_bwd_ref,
+        composite_ref,
+        composited_counts,
+        contrib_counts,
+    )
     from repro_torch.launch.train import GSTrainer
     from repro_torch.obs import Obs
     from repro_torch.optim.adam import adam_update
@@ -559,6 +636,10 @@ def main(argv=None) -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line or "warning" in line:
             log(f"  ptxas: {line.strip()}")
     for entry, e in ptxas_entries(build.log).items():
+        if "tile_raster" in entry:
+            which = "backward" if "bwd_kernel" in entry else "forward"
+            log(f"ptxas: tile_raster {which}: {e.get('registers')} registers, spill stores "
+                f"{e.get('spill_stores')} B, spill loads {e.get('spill_loads')} B")
         if "attention_tc_kernel" in entry:
             hd = re.search(r"attention_tc_kernelILi(\d+)E", entry).group(1)
             log(f"ptxas: bf16 tensor-core attention, hd {hd}: {e.get('registers')} registers at entry (setmaxnreg: "
@@ -572,6 +653,9 @@ def main(argv=None) -> int:
     log(f"scene: kingsnake {n_surface} surface points -> {host.means.shape[0]} Gaussians "
         f"({time.perf_counter() - t0:.1f} s)")
     cfg = paper_gs_config(args.res)
+    fwd_ctas, bwd_ctas, fwd_threads, bwd_threads = tr_ops.occupancy(cfg.tile_h, cfg.tile_w)
+    log(f"occupancy at {cfg.tile_h}x{cfg.tile_w} tiles: resident CTAs per SM: tile_raster forward {fwd_ctas} of "
+        f"{fwd_threads} threads, backward {bwd_ctas} of {bwd_threads} threads (two pixels a thread forward, one backward)")
     g_dev = G.from_numpy(host, dev)
     cams = orbit_cameras(12, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.0)
     cam = camera_slice(cams, 0)
@@ -594,8 +678,11 @@ def main(argv=None) -> int:
     pk_sorted, _ = P.sort_by_depth(proj_k)
     tiles_x = cfg.img_w // cfg.tile_w
     # the main path's lists (the paper config's hierarchical binning), a strip
-    # at row_offset != 0, and the flat lists of the same frame, which are far
-    # denser (at 4M Gaussians the hierarchical lists leave most tiles empty)
+    # at row_offset != 0, the flat lists of the same frame, which are far
+    # denser (at 4M Gaussians the hierarchical lists leave most tiles empty),
+    # a dense slab at the paper config's tiles and K, the view an isosurface
+    # fills, and one at K 250, whose rows are not 16-byte aligned: the
+    # kernels stage it with 4-byte cp.async copies in place of 16-byte ones
     idx, valid = R.bin_tiles(pk_sorted, img_h=cfg.img_h, img_w=cfg.img_w, tile_h=cfg.tile_h,
                              tile_w=cfg.tile_w, k_per_tile=cfg.k_per_tile, binning=cfg.binning)
     row = (cfg.img_h // cfg.tile_h) // 2 + 1
@@ -603,47 +690,66 @@ def main(argv=None) -> int:
                                     tile_w=cfg.tile_w, k_per_tile=cfg.k_per_tile, binning=cfg.binning)
     fidx, fvalid = R.build_tile_lists(pk_sorted, img_h=cfg.img_h, img_w=cfg.img_w, tile_h=cfg.tile_h,
                                       tile_w=cfg.tile_w, k_per_tile=cfg.k_per_tile)
-    raster_cases = [("frame", idx, valid, 0), (f"row {row}", idx_r, valid_r, row * cfg.tile_h),
-                    ("frame, flat lists", fidx, fvalid, 0)]
+    slab = dense_slab(dev, args.seed, tiles_x, cfg.img_h // cfg.tile_h, cfg.tile_h, cfg.k_per_tile)
+    slab_250 = dense_slab(dev, args.seed, tiles_x, cfg.img_h // cfg.tile_h, cfg.tile_h, 250)
+
+    def slab_of(ix, vd):  # the kernel's (T, 11, K) input and its float valid mask
+        return pk_sorted[ix.long()].transpose(1, 2).contiguous(), vd.to(torch.float32).contiguous()
+
+    raster_cases = [("frame", *slab_of(idx, valid), 0), (f"row {row}", *slab_of(idx_r, valid_r), row * cfg.tile_h),
+                    ("frame, flat lists", *slab_of(fidx, fvalid), 0), ("dense slab", *slab, 0),
+                    ("dense slab, K 250", *slab_250, 0)]
+
+    def fwd(splats_t, vf, kw):  # the forward kernel as training runs it: (rgb, t_final, n_contrib)
+        return tr_ops.composite(splats_t, vf, **kw)
+
+    def bwd(splats_t, vf, gout, gtfin, kw, res):  # the backward kernel, from the forward's (t_final, n_contrib)
+        return tr_ops.composite_bwd(splats_t, vf, gout, gtfin, *res, **kw)
+
     tr_err = 0.0
     raster_inputs = {}
-    for label, ix, vd, roff in raster_cases:
-        splats_t = pk_sorted[ix.long()].transpose(1, 2).contiguous()
-        vf = vd.to(torch.float32).contiguous()
+    for label, splats_t, vf, roff in raster_cases:
         kw = dict(tiles_x=tiles_x, tile_h=cfg.tile_h, tile_w=cfg.tile_w, row_offset=roff)
-        out_k, t_k = tr_ops.composite(splats_t, vf, **kw)
+        out_k, t_k, nc_k = fwd(splats_t, vf, kw)
         out_p, t_p = composite_ref(splats_t, vf, **kw)
-        d_rgb = (out_k - out_p).abs().amax(dim=1)                 # (T, P) worst channel
-        d_t = (t_k - t_p).abs()
-        tol_rgb = 1e-5 + 1e-4 * out_p.abs().amax(dim=1)
-        tol_t = 1e-5 + 1e-4 * t_p.abs()
-        outside = int(((d_rgb > tol_rgb) | (d_t > tol_t)).sum())
-        n_pix = d_t.numel()
-        err = float(torch.maximum(d_rgb.max(), d_t.max()))
+        counts = composited_counts(splats_t, vf, **kw)
+        err, bad, lines = raster_fwd_report(out_k, t_k, out_p, t_p, counts)
         tr_err = max(tr_err, err)
-        log(f"compare tile_raster {label} T={splats_t.shape[0]} K={splats_t.shape[2]} P={d_t.shape[1]}: "
-            f"max_abs_err {err:.3e}, pixels outside atol 1e-5/rtol 1e-4: {outside} of {n_pix}")
-        if outside > 1e-4 * n_pix or err > 2e-2:
+        nc_bad = int((nc_k != contrib_counts(splats_t, vf, **kw)).sum())
+        log(f"compare tile_raster {label} T={splats_t.shape[0]} K={splats_t.shape[2]} P={t_k.shape[1]}: "
+            f"max_abs_err {err:.3e}, entries outside atol {RASTER_ATOL:g}/rtol {RASTER_RTOL:g}: {bad} of "
+            f"{out_k.numel() + t_k.numel()} (every pixel and channel of rgb and t_final); n_contrib unequal to the "
+            f"plain version's: {nc_bad}")
+        for line in lines:
+            log(f"  outside: {line}")
+        if bad or nc_bad:
             raise SystemExit(f"tile_raster disagrees with its plain version ({label})")
+        again = fwd(splats_t, vf, kw)
+        if not all(torch.equal(a, b) for a, b in zip(again, (out_k, t_k, nc_k))):
+            raise SystemExit(f"tile_raster: two launches on the same inputs differ ({label})")
         if roff == 0:
-            raster_inputs[label] = (splats_t, vf, kw)
+            raster_inputs[label] = (splats_t, vf, kw, counts)
 
     # the backward, on the frame's hierarchical (main path) and flat lists,
     # with d(out) from a real loss (L1 + D-SSIM against the ray-marched view;
-    # black background, so d(t_final) is 0) and a random d(out), d(t_final)
+    # black background, so d(t_final) is 0) and a random d(out), d(t_final);
+    # on the dense slabs with the random one
     bwd_err = 0.0
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    for label, (splats_t, vf, kw) in raster_inputs.items():
-        raw, tfin = tr_ops.composite(splats_t, vf, **kw)
-        raw.requires_grad_()
-        tfin.requires_grad_()
-        img, tmap = image_layout(raw, tfin, cfg.img_h, cfg.img_w, cfg.tile_h, cfg.tile_w)
-        img = img + tmap[..., None] * torch.zeros(3, device=dev)  # the config's black background
-        loss = distributed_gs_loss(img[None], data.view(0)[1][None])
-        g_real = torch.autograd.grad(loss, [raw, tfin])
+    for label, (splats_t, vf, kw, counts) in raster_inputs.items():
+        raw, tfin, *res = fwd(splats_t, vf, kw)
         g_rand = (torch.randn(raw.shape, device=dev, generator=gen), torch.randn(tfin.shape, device=dev, generator=gen))
-        for kind, (gout, gtfin) in (("real loss", g_real), ("random", g_rand)):
-            got = tr_ops.composite_bwd(splats_t, vf, gout.contiguous(), gtfin.contiguous(), **kw)
+        kinds = [("random", g_rand)]
+        if not label.startswith("dense slab"):
+            raw.requires_grad_()
+            tfin.requires_grad_()
+            img, tmap = image_layout(raw, tfin, cfg.img_h, cfg.img_w, cfg.tile_h, cfg.tile_w)
+            img = img + tmap[..., None] * torch.zeros(3, device=dev)  # the config's black background
+            loss = distributed_gs_loss(img[None], data.view(0)[1][None])
+            kinds.insert(0, ("real loss", torch.autograd.grad(loss, [raw, tfin])))
+        res = (tfin.detach(), *res)
+        for kind, (gout, gtfin) in kinds:
+            got = bwd(splats_t, vf, gout.contiguous(), gtfin.contiguous(), kw, res)
             want = composite_bwd_ref(splats_t, vf, gout, gtfin, **kw)
             err, bad = grad_report(got, want)
             bwd_err = max(bwd_err, err)
@@ -651,7 +757,9 @@ def main(argv=None) -> int:
                 f"{float(want.abs().max()):.3e}), entries outside atol 2e-5*max|g|/rtol 2e-4: {bad} of {want.numel()}")
             if bad or not torch.isfinite(got).all():
                 raise SystemExit(f"tile_raster_bwd disagrees with its plain version ({label}, {kind})")
-        raster_inputs[label] = (splats_t, vf, kw, g_rand)
+            if not torch.equal(bwd(splats_t, vf, gout.contiguous(), gtfin.contiguous(), kw, res), got):
+                raise SystemExit(f"tile_raster_bwd: two launches on the same inputs differ ({label}, {kind})")
+        raster_inputs[label] = (splats_t, vf, kw, counts, g_rand, res)
 
     # ---------------------------------------------------------- 3. time
     cam_vec = gp_ops.cam_vector(cam)
@@ -665,36 +773,54 @@ def main(argv=None) -> int:
         f"per launch), plain {gp_plain_ms:.4f} ms, bound {max(gp_bound_bytes, gp_bound_ops):.4f} ms "
         f"({n * GSPROJECT_BYTES_PER_GAUSSIAN} B), no library call")
 
+    # each rasterizer kernel against its bound and its plain version, the
+    # per-tile load, and the densest tile alone (every other tile's valid row
+    # zeroed): if it takes about the whole input's time, its serial walk
+    # sets the pace
     tr = {}
     trb = {}
-    for label, (splats_t, vf, kw, (gout, gtfin)) in raster_inputs.items():
-        ms = cuda_ms(lambda: tr_ops.composite(splats_t, vf, **kw), 20, f"tile_raster {label} kernel")
+    p_tile = cfg.tile_h * cfg.tile_w
+    for label, (splats_t, vf, kw, counts, (gout, gtfin), res) in raster_inputs.items():
+        kv, tile_evals = tile_load(vf, counts)
+        hits_px = composited_counts(splats_t, vf, **kw, live_only=True)
+        densest = int(tile_evals.argmax())
+        alone = torch.zeros_like(vf)
+        alone[densest] = vf[densest]
+        _, t_alone, *res_alone = fwd(splats_t, alone, kw)
+        res_alone = (t_alone, *res_alone)
+        log(f"load tile_raster {label}: per tile valid entries {stats_line(kv)}; alpha evaluations "
+            f"{stats_line(tile_evals)}; composited (pixel, splat) pairs {int(hits_px.sum())}; densest tile "
+            f"{densest} ({int(kv[densest])} valid, {int(tile_evals[densest])} evaluations)")
+        ms = cuda_ms(lambda: fwd(splats_t, vf, kw), 20, f"tile_raster {label} kernel")
+        ms_alone = cuda_ms(lambda: fwd(splats_t, alone, kw), 20, f"tile_raster {label} densest tile alone")
         plain_ms = cuda_ms(lambda: composite_ref(splats_t, vf, **kw), 3, f"tile_raster {label} plain")
-        evals = raster_evals(splats_t, vf, composited_counts(splats_t, vf, **kw))
-        nbytes = raster_bytes(vf, cfg.tile_h * cfg.tile_w)
+        evals = raster_evals(splats_t, vf, counts)
+        nbytes = raster_bytes(vf, p_tile)
         b_ops = evals * RASTER_OPS_PER_EVAL / H100_FP32_PER_S * 1e3
         b_bytes = nbytes / H100_BYTES_PER_S * 1e3
         tr[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_bytes),
                          bound_by="operations" if b_ops >= b_bytes else "bytes")
-        full_evals = splats_t.shape[0] * splats_t.shape[2] * cfg.tile_h * cfg.tile_w
-        log(f"time tile_raster {label} T={splats_t.shape[0]} K={splats_t.shape[2]}: kernel {ms:.4f} ms (host "
-            f"{host_us(lambda: tr_ops.composite(splats_t, vf, **kw)):.1f} us per launch), plain "
-            f"{plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({tr[label]['bound_by']}; "
-            f"{int((vf > 0.5).sum())} valid entries, {evals} alpha evaluations of {full_evals} before early exit, "
+        full_evals = splats_t.shape[0] * splats_t.shape[2] * p_tile
+        log(f"time tile_raster {label} T={splats_t.shape[0]} K={splats_t.shape[2]} ({card}): kernel {ms:.4f} ms (host "
+            f"{host_us(lambda: fwd(splats_t, vf, kw)):.1f} us per launch), densest tile alone {ms_alone:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({tr[label]['bound_by']}; "
+            f"{int(kv.sum())} valid entries, {evals} alpha evaluations of {full_evals} before early exit, "
             f"{nbytes} B), no library call")
-        ms = cuda_ms(lambda: tr_ops.composite_bwd(splats_t, vf, gout, gtfin, **kw), 20, f"tile_raster_bwd {label}")
+        ms = cuda_ms(lambda: bwd(splats_t, vf, gout, gtfin, kw, res), 20, f"tile_raster_bwd {label}")
+        ms_alone = cuda_ms(lambda: bwd(splats_t, alone, gout, gtfin, kw, res_alone), 20,
+                           f"tile_raster_bwd {label} densest tile alone")
         plain_ms = cuda_ms(lambda: composite_bwd_ref(splats_t, vf, gout, gtfin, **kw), 3,
                            f"tile_raster_bwd {label} plain")
-        hits = int(composited_counts(splats_t, vf, **kw, live_only=True).sum())
-        nbytes = raster_bwd_bytes(vf, cfg.tile_h * cfg.tile_w)
-        b_ops = (evals * RASTER_OPS_PER_EVAL + hits * RASTER_BWD_OPS_PER_HIT) / H100_FP32_PER_S * 1e3
+        hits = int(hits_px.sum())
+        nbytes = raster_bwd_bytes(vf, p_tile)
+        b_ops = hits * RASTER_BWD_OPS_PER_HIT / H100_FP32_PER_S * 1e3
         b_bytes = nbytes / H100_BYTES_PER_S * 1e3
         trb[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_bytes),
                           bound_by="operations" if b_ops >= b_bytes else "bytes")
-        log(f"time tile_raster_bwd {label}: kernel {ms:.4f} ms (host "
-            f"{host_us(lambda: tr_ops.composite_bwd(splats_t, vf, gout, gtfin, **kw)):.1f} us per launch), plain "
-            f"{plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({trb[label]['bound_by']}; {evals} forward "
-            f"re-evaluations, {hits} composited (pixel, splat) pairs, {nbytes} B), no library call")
+        log(f"time tile_raster_bwd {label} ({card}): kernel {ms:.4f} ms (host "
+            f"{host_us(lambda: bwd(splats_t, vf, gout, gtfin, kw, res)):.1f} us per launch), densest tile alone "
+            f"{ms_alone:.4f} ms, plain {plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({trb[label]['bound_by']}; "
+            f"{hits} composited (pixel, splat) pairs, {nbytes} B), no library call")
 
     # hierarchical vs flat lists at this density (the strip renderer's premise)
     same = (torch.where(fvalid, fidx, -1) == torch.where(valid, idx, -1)).all(dim=1)
@@ -727,7 +853,7 @@ def main(argv=None) -> int:
     log(f"view breakdown N={n} {cfg.img_h}px ({card}): project {st_proj:.3f} ms, sort {st_sort:.3f} ms, "
         f"bin {st_bin:.3f} ms, gather+raster+blend {st_rast:.3f} ms; whole view {st_view:.3f} ms "
         f"(host enqueue {host_enqueue:.3f} ms)")
-    del proj_k, proj_p, pk_sorted, raster_inputs, fidx, fvalid, img_h_, img_f_
+    del proj_k, proj_p, pk_sorted, raster_inputs, raster_cases, slab, fidx, fvalid, img_h_, img_f_
 
     # ---------------------------------------------------------- 4. serve
     n_req = args.clients * args.requests

@@ -56,12 +56,15 @@ SIGNATURES = {
     # means (N,3), log_scales (N,3), quats (N,4), opacity_logit (N,), sh
     # (N,C,3), sh_stride, cam (host, 32 floats), out (N,11), n, blur, stream
     "gsproject_fwd": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _P),
-    # splats_t (T,11,K), valid (T,K), out (T,3,P), t_final (T,P),
-    # n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
-    "tile_raster_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # splats_t (T,11,K), valid (T,K), gout (T,3,P), gtfin (T,P), dsplats
-    # (T,11,K), n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
-    "tile_raster_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # splats_t (T,11,K), valid (T,K), out (T,3,P), t_final (T,P), n_contrib
+    # (T,P) int32, n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
+    "tile_raster_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # splats_t (T,11,K), valid (T,K), gout (T,3,P), gtfin (T,P), t_final
+    # (T,P), n_contrib (T,P), dsplats (T,11,K), n_tiles, k, tiles_x, tile_h,
+    # tile_w, row_offset, stream
+    "tile_raster_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # tile_h, tile_w, out (4 ints: forward and backward CTAs per SM, then threads per CTA)
+    "tile_raster_occupancy": (_I, _I, _P),
     # q (B,S,H,hd), k, v (B,Skv,Hkv,hd), out (B,S,H,hd), batch, s, skv,
     # heads, kv_heads, head_dim, is_bf16, causal, window (< 0: none),
     # q_offset, scale, stream

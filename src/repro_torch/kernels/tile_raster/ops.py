@@ -9,26 +9,31 @@ does. It is differentiable with respect to ``packed``: the compositor is a
 splat's gradient across the tiles that list it is autograd of the gather.
 
 On a CUDA device the Function runs ``tile_raster.cu``: ``composite`` forward
-and ``composite_bwd`` backward. On the CPU it runs the plain versions,
-``ref.composite_ref`` and ``ref.composite_bwd_ref``. There is no fallback: a
-CUDA tensor either runs the kernel or raises.
+and ``composite_bwd`` backward. The forward also writes each pixel's
+``n_contrib`` (one past its last composited slot); when autograd will need
+the backward, the Function saves it with ``t_final``, and the backward
+kernel starts from both instead of re-walking the forward. On the CPU it runs the plain
+versions, ``ref.composite_ref`` and ``ref.composite_bwd_ref``. There is no
+fallback: a CUDA tensor either runs the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.tile_raster import ref as _ref
 
-MAX_PIXELS = 1024  # one thread per pixel of a tile, one CTA per tile
+MAX_PIXELS = 1024  # one CTA per tile: two pixels a thread forward, one backward
 
 launch_count = _lib.LaunchCount()      # forward launches
 bwd_launch_count = _lib.LaunchCount()  # backward launches
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, dev: torch.device) -> None:
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
-        raise ValueError(f"{name}: want contiguous float32 {shape} on {dev}, "
+def _check(name: str, x: torch.Tensor, shape: tuple, dev: torch.device, dtype=torch.float32) -> None:
+    if x.dtype != dtype or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: want contiguous {dtype} {shape} on {dev}, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
@@ -53,45 +58,52 @@ def composite(
     tile_h: int,
     tile_w: int,
     row_offset: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run ``tile_raster.cu``'s forward: returns raw rgb (T, 3, P) and t_final (T, P)."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run ``tile_raster.cu``'s forward: returns raw rgb (T, 3, P), t_final
+    (T, P) and n_contrib (T, P) int32, one past each pixel's last composited
+    slot (the backward's residual)."""
     t_count, k, p = _geometry(splats_t, tile_h, tile_w)
     dev = splats_t.device
     _check("splats_t", splats_t, (t_count, 11, k), dev)
     _check("valid", valid, (t_count, k), dev)
     out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
-    if t_count == 0:
-        return out, tfin
-    lib = _lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tile_raster_fwd(
-            splats_t.data_ptr(), valid.data_ptr(), out.data_ptr(), tfin.data_ptr(),
-            t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
-        )
-    _lib.check("tile_raster_fwd", err)
-    launch_count.n += 1
-    return out, tfin
+    n_contrib = torch.empty((t_count, p), dtype=torch.int32, device=dev)
+    if t_count > 0:
+        lib = _lib.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.tile_raster_fwd(
+                splats_t.data_ptr(), valid.data_ptr(), out.data_ptr(), tfin.data_ptr(),
+                n_contrib.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
+            )
+        _lib.check("tile_raster_fwd", err)
+        launch_count.n += 1
+    return out, tfin, n_contrib
 
 
 def composite_bwd(
-    splats_t: torch.Tensor,  # (T, 11, K) float32
-    valid: torch.Tensor,     # (T, K) float32
-    gout: torch.Tensor,      # (T, 3, P) float32, d(raw rgb)
-    gtfin: torch.Tensor,     # (T, P) float32, d(t_final)
+    splats_t: torch.Tensor,   # (T, 11, K) float32
+    valid: torch.Tensor,      # (T, K) float32
+    gout: torch.Tensor,       # (T, 3, P) float32, d(raw rgb)
+    gtfin: torch.Tensor,      # (T, P) float32, d(t_final)
+    t_final: torch.Tensor,    # (T, P) float32, the forward's
+    n_contrib: torch.Tensor,  # (T, P) int32, the forward's
     *,
     tiles_x: int,
     tile_h: int,
     tile_w: int,
     row_offset: int = 0,
 ) -> torch.Tensor:
-    """Run ``tile_raster.cu``'s backward: returns d(splats_t) (T, 11, K)."""
+    """Run ``tile_raster.cu``'s backward from the forward's residuals:
+    returns d(splats_t) (T, 11, K)."""
     t_count, k, p = _geometry(splats_t, tile_h, tile_w)
     dev = splats_t.device
     for name, x, shape in (("splats_t", splats_t, (t_count, 11, k)), ("valid", valid, (t_count, k)),
-                           ("gout", gout, (t_count, 3, p)), ("gtfin", gtfin, (t_count, p))):
+                           ("gout", gout, (t_count, 3, p)), ("gtfin", gtfin, (t_count, p)),
+                           ("t_final", t_final, (t_count, p))):
         _check(name, x, shape, dev)
+    _check("n_contrib", n_contrib, (t_count, p), dev, torch.int32)
     dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
     if t_count == 0:
         return dsplats
@@ -99,12 +111,21 @@ def composite_bwd(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tile_raster_bwd(
-            splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), dsplats.data_ptr(),
-            t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
+            splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), t_final.data_ptr(),
+            n_contrib.data_ptr(), dsplats.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
         )
     _lib.check("tile_raster_bwd", err)
     bwd_launch_count.n += 1
     return dsplats
+
+
+def occupancy(tile_h: int, tile_w: int) -> tuple[int, int, int, int]:
+    """(forward CTAs per SM, backward CTAs per SM, forward threads per CTA,
+    backward threads per CTA) at this tile size, from CUDA's occupancy
+    calculator."""
+    out = (ctypes.c_int * 4)()
+    _lib.check("tile_raster_occupancy", _lib.library().tile_raster_occupancy(tile_h, tile_w, out))
+    return tuple(out)
 
 
 class Composite(torch.autograd.Function):
@@ -116,19 +137,22 @@ class Composite(torch.autograd.Function):
     def forward(ctx, splats_t, valid, tiles_x: int, tile_h: int, tile_w: int, row_offset: int):
         kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
         ctx.kw = kw
-        ctx.save_for_backward(splats_t, valid)
-        if splats_t.device.type == "cuda":
-            return composite(splats_t, valid, **kw)
-        return _ref.composite_ref(splats_t, valid, **kw)
+        if splats_t.device.type != "cuda":
+            ctx.save_for_backward(splats_t, valid)
+            return _ref.composite_ref(splats_t, valid, **kw)
+        out, tfin, n_contrib = composite(splats_t, valid, **kw)
+        if ctx.needs_input_grad[0]:  # serving keeps no residual
+            ctx.save_for_backward(splats_t, valid, tfin, n_contrib)
+        return out, tfin
 
     @staticmethod
     def backward(ctx, gout, gtfin):
         # an output that got no gradient arrives as zeros (autograd
         # materializes them by default)
-        splats_t, valid = ctx.saved_tensors
+        splats_t, valid, *res = ctx.saved_tensors
         gout, gtfin = gout.contiguous(), gtfin.contiguous()
         if splats_t.device.type == "cuda":
-            d = composite_bwd(splats_t, valid, gout, gtfin, **ctx.kw)
+            d = composite_bwd(splats_t, valid, gout, gtfin, *res, **ctx.kw)
         else:
             d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
         return d, None, None, None, None, None

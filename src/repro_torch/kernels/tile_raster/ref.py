@@ -139,6 +139,23 @@ def composited_counts(
     return torch.cat(_by_tile_row(count, splats_t.transpose(1, 2), valid > 0.5, px, py, tiles_x))
 
 
+def contrib_counts(
+    splats_t: torch.Tensor, valid: torch.Tensor, *, tiles_x: int, tile_h: int, tile_w: int, row_offset: int = 0,
+) -> torch.Tensor:
+    """Per pixel (T, P) int32, one past the last slot composited (alive and
+    alpha > 0), 0 where none is: the forward kernel's ``n_contrib``, which
+    the backward kernel starts from (same layout as ``composite_ref``)."""
+    tids = torch.arange(splats_t.shape[0], device=splats_t.device)
+    px, py = tile_pixel_coords(tids, tiles_x, tile_h, tile_w, row_offset)
+
+    def last(splats, vmask, x, y):
+        alpha, t_incl = _alpha_and_trans(splats, vmask, x, y)
+        slot = torch.arange(1, alpha.shape[1] + 1, device=alpha.device)[None, :, None]
+        return torch.where((t_incl >= T_EPS) & (alpha > 0), slot, 0).amax(dim=1).to(torch.int32)
+
+    return torch.cat(_by_tile_row(last, splats_t.transpose(1, 2), valid > 0.5, px, py, tiles_x))
+
+
 def _compose_tiles_bwd(splats, vmask, pix_x, pix_y, gout, gtfin) -> torch.Tensor:
     """VJP of ``compose_tiles`` per tile, with the Pallas kernel's masks.
 

@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gsproject import ops as gp_ops
 from repro_torch.kernels.gsproject.ref import project_ref
 from repro_torch.kernels.tile_raster import ops as tr_ops
-from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref
+from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref, composited_counts, contrib_counts
 from repro_torch.models import api, lm
 from repro_torch.models.params import tree_to
 from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
@@ -82,6 +82,9 @@ def test_kernel_library_builds_and_loads(cuda_device):
     assert build.path.exists()
     lib = _lib.library()
     assert lib.gsproject_fwd and lib.tile_raster_fwd and lib.tile_raster_bwd and lib.flash_attention_fwd
+    fwd_ctas, bwd_ctas, fwd_threads, bwd_threads = tr_ops.occupancy(16, 16)
+    assert (fwd_threads, bwd_threads) == (128, 256)  # two pixels a thread forward, one backward
+    assert fwd_ctas >= 4 and bwd_ctas >= 4
 
 
 @pytest.mark.parametrize("n", [1000, 4096, 100_003])
@@ -103,6 +106,9 @@ def test_gsproject_kernel_refuses_higher_sh(cuda_device):
         P.project(G.from_numpy(g, cuda_device), _cam(32, 32))
 
 
+# the rasterizer forward's tolerance: the JAX package's own
+# (tests/test_tile_raster_kernel.py), on every pixel and channel
+RASTER_ATOL, RASTER_RTOL = 3e-6, 1e-5
 # the JAX rasterizer tests' shape sweep: (n_gauss, H, W, tile_h, tile_w, K)
 SWEEP = [
     (64, 32, 32, 16, 16, 64),
@@ -123,8 +129,8 @@ def test_tile_raster_kernel_matches_plain(cuda_device, n, h, w, th, tw, k):
     torch.cuda.synchronize()
     assert tr_ops.launch_count.n == before + 1
     img_c, t_c = R.render(G.from_numpy(host, "cpu"), cam, **kw)
-    np.testing.assert_allclose(img.cpu().numpy(), img_c.numpy(), atol=1e-5, rtol=1e-4)
-    np.testing.assert_allclose(t.cpu().numpy(), t_c.numpy(), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(img.cpu().numpy(), img_c.numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
+    np.testing.assert_allclose(t.cpu().numpy(), t_c.numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
 
 
 @pytest.mark.parametrize("row_offset", [0, 48])
@@ -145,10 +151,10 @@ def test_composite_kernel_matches_plain_on_random_slabs(cuda_device, row_offset)
     valid[7, :-1] = 0.0       # only the last slot valid: the walk spans the whole list
     kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
     st, vt = torch.tensor(s, device=cuda_device), torch.tensor(valid, device=cuda_device)
-    out_k, t_k = tr_ops.composite(st, vt, **kw)
+    out_k, t_k, _ = tr_ops.composite(st, vt, **kw)
     out_p, t_p = composite_ref(st, vt, **kw)
-    np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(), atol=1e-5, rtol=1e-4)
-    np.testing.assert_allclose(t_k.cpu().numpy(), t_p.cpu().numpy(), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(out_k.cpu().numpy(), out_p.cpu().numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
+    np.testing.assert_allclose(t_k.cpu().numpy(), t_p.cpu().numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
 
 
 def test_strip_bitwise_equals_full_frame_on_card(cuda_device):
@@ -215,8 +221,9 @@ def test_composite_bwd_kernel_matches_plain(cuda_device, t_count, k, tiles_x, th
     s, valid, gout, gtfin = _bwd_inputs(t_count + k, t_count, k, tiles_x, th, tw, row_offset)
     kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
     args = [torch.tensor(x, device=cuda_device) for x in (s, valid, gout, gtfin)]
+    _, tfin, n_contrib = tr_ops.composite(args[0], args[1], **kw)  # the forward's residuals
     before = tr_ops.bwd_launch_count.n
-    got = tr_ops.composite_bwd(*args, **kw)
+    got = tr_ops.composite_bwd(*args, tfin, n_contrib, **kw)
     torch.cuda.synchronize()
     assert tr_ops.bwd_launch_count.n == before + 1
     want = composite_bwd_ref(*args, **kw)
@@ -227,8 +234,120 @@ def test_composite_bwd_kernel_matches_plain(cuda_device, t_count, k, tiles_x, th
         np.testing.assert_allclose(got.cpu().numpy(), w, atol=2e-5 * scale, rtol=2e-4)
     assert not got[:, 9:].any()
     assert got[-1].abs().max() == 0  # the empty tile
-    again = tr_ops.composite_bwd(*args, **kw)
+    again = tr_ops.composite_bwd(*args, tfin, n_contrib, **kw)
     assert torch.equal(again, got)  # no atomics: the slab is deterministic
+
+
+def _dense_slab(seed, tiles_x, tiles_y, th, tw, k, row_offset=0):
+    """The view an isosurface fills, at a test's size: every slot valid, each
+    mean inside its tile, footprints (sigma 10-20 px) that cover the tile,
+    opacities 0.02-0.08 (a 16x16 tile's median pixel composites ~216 splats
+    before the 1e-4 stop), and random cotangents."""
+    r = np.random.default_rng(seed)
+    t_count = tiles_x * tiles_y
+    ty, tx = np.arange(t_count) // tiles_x, np.arange(t_count) % tiles_x
+    s = np.zeros((t_count, 11, k), np.float32)
+    s[:, 0] = tx[:, None] * tw + r.uniform(0, tw, (t_count, k))
+    s[:, 1] = ty[:, None] * th + row_offset + r.uniform(0, th, (t_count, k))
+    sx, sy = r.uniform(10, 20, (t_count, k)), r.uniform(10, 20, (t_count, k))
+    s[:, 2] = 1 / (sx * sx)
+    s[:, 3] = r.uniform(-0.3, 0.3, (t_count, k)) / (sx * sy)
+    s[:, 4] = 1 / (sy * sy)
+    s[:, 5] = r.uniform(0.02, 0.08, (t_count, k))
+    s[:, 6:9] = r.uniform(0, 1, (t_count, 3, k))
+    s[:, 9] = np.arange(k) + 1.0
+    s[:, 10] = 3 * np.maximum(sx, sy)
+    p = th * tw
+    gout = r.normal(size=(t_count, 3, p)).astype(np.float32)
+    gtfin = r.normal(size=(t_count, p)).astype(np.float32)
+    return s, np.ones((t_count, k), np.float32), gout, gtfin
+
+
+# (tile_h, tile_w, K): the paper config's 16x16 tiles at its K, 8x8 and
+# 32x32 (1,024 pixels, the most a CTA takes), 5x7 (35 pixels, not a multiple
+# of 32), and a K that is not a multiple of 4 (cp.async staging instead of
+# bulk copies)
+DENSE_CASES = [(16, 16, 256), (8, 8, 256), (32, 32, 256), (5, 7, 256), (16, 16, 150)]
+
+
+@pytest.mark.parametrize("th,tw,k", DENSE_CASES)
+def test_tile_raster_kernels_on_a_dense_slab(cuda_device, th, tw, k):
+    """Both kernels on tiles whose every slot is valid: the forward at the
+    North star's tolerance on every pixel, its n_contrib equal to the plain
+    version's, the backward fed the forward's residuals at the gradient
+    tolerance, and two launches of each bitwise equal."""
+    s, valid, gout, gtfin = _dense_slab(th * tw + k, 2, 2, th, tw, k)
+    kw = dict(tiles_x=2, tile_h=th, tile_w=tw, row_offset=0)
+    st, vt, go, gt = (torch.tensor(x, device=cuda_device) for x in (s, valid, gout, gtfin))
+    out, tfin, n_contrib = tr_ops.composite(st, vt, **kw)
+    out_p, t_p = composite_ref(st, vt, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
+    np.testing.assert_allclose(tfin.cpu().numpy(), t_p.cpu().numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
+    assert torch.equal(n_contrib, contrib_counts(st, vt, **kw))
+    if (th, tw) == (16, 16):  # dense indeed: the median pixel composites more than half the list
+        assert float(composited_counts(st, vt, **kw).float().median()) >= k / 2
+    again = tr_ops.composite(st, vt, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, tfin, n_contrib)))
+    got = tr_ops.composite_bwd(st, vt, go, gt, tfin, n_contrib, **kw)
+    want = composite_bwd_ref(st, vt, go, gt, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5 * float(want.abs().max()),
+                               rtol=2e-4)
+    assert not got[:, 9:].any()
+    assert torch.equal(tr_ops.composite_bwd(st, vt, go, gt, tfin, n_contrib, **kw), got)
+
+
+@pytest.mark.parametrize("k", [256, 150])
+def test_dead_and_invalid_splats_never_reach_the_output(cuda_device, k):
+    """The kernels evaluate a chunk of splats ahead of the transmittance
+    chain: a dead splat (valid, but alpha < 1/255) or an invalid slot must
+    leave T, the colour and every gradient as they are whatever its fields
+    hold. NaN in those fields gives the same bits as zeros there; the lists
+    end at ragged slots (the last batch's chunk then runs past its copy)."""
+    s, valid, gout, gtfin = _dense_slab(11 + k, 2, 2, 16, 16, k)
+    valid[0, 129:] = 0.0  # ragged ends: 129, 130, 131 and 133 valid slots
+    valid[1, 130:] = 0.0
+    valid[2, 131:] = 0.0
+    valid[3, 133:] = 0.0
+    r = np.random.default_rng(k)
+    invalid = r.uniform(size=valid.shape) < 0.1
+    valid[invalid] = 0.0
+    dead = (r.uniform(size=valid.shape) < 0.1) & (valid > 0.5)
+    s[:, 5][dead] = 1e-4  # opacity: alpha < 1/255 everywhere
+    clean, poisoned = s.copy(), s.copy()
+    clean[:, 6:9][np.broadcast_to(dead[:, None], clean[:, 6:9].shape)] = 0.0
+    poisoned[:, 6:9][np.broadcast_to(dead[:, None], s[:, 6:9].shape)] = np.nan
+    poisoned[:, :9][np.broadcast_to((valid < 0.5)[:, None], s[:, :9].shape)] = np.nan
+    kw = dict(tiles_x=2, tile_h=16, tile_w=16, row_offset=0)
+    vt, go, gt = (torch.tensor(x, device=cuda_device) for x in (valid, gout, gtfin))
+    sc, sp = torch.tensor(clean, device=cuda_device), torch.tensor(poisoned, device=cuda_device)
+    want = tr_ops.composite(sc, vt, **kw)
+    got = tr_ops.composite(sp, vt, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    out_p, t_p = composite_ref(sc, vt, **kw)
+    np.testing.assert_allclose(want[0].cpu().numpy(), out_p.cpu().numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
+    np.testing.assert_allclose(want[1].cpu().numpy(), t_p.cpu().numpy(), atol=RASTER_ATOL, rtol=RASTER_RTOL)
+    d_clean = tr_ops.composite_bwd(sc, vt, go, gt, *want[1:], **kw)
+    assert torch.equal(tr_ops.composite_bwd(sp, vt, go, gt, *want[1:], **kw), d_clean)
+    d_ref = composite_bwd_ref(sc, vt, go, gt, **kw)
+    np.testing.assert_allclose(d_clean.cpu().numpy(), d_ref.cpu().numpy(), atol=2e-5 * float(d_ref.abs().max()),
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("th,tw,k", [(16, 16, 256), (5, 7, 150)])
+def test_strip_rows_bitwise_equal_frame_rows_on_the_kernel(cuda_device, th, tw, k):
+    """Each tile row rendered alone (row_offset != 0) is bitwise equal to the
+    same rows of the frame, n_contrib included."""
+    tiles_x, tiles_y = 3, 4
+    s, valid, _, _ = _dense_slab(7, tiles_x, tiles_y, th, tw, k)
+    valid[5, k // 2:] = 0.0  # a ragged list
+    st, vt = torch.tensor(s, device=cuda_device), torch.tensor(valid, device=cuda_device)
+    frame = tr_ops.composite(st, vt, tiles_x=tiles_x, tile_h=th, tile_w=tw)
+    for r in range(tiles_y):
+        rows = slice(r * tiles_x, (r + 1) * tiles_x)
+        strip = tr_ops.composite(st[rows].contiguous(), vt[rows].contiguous(), tiles_x=tiles_x, tile_h=th, tile_w=tw,
+                                 row_offset=r * th)
+        for a, b in zip(strip, frame):
+            assert torch.equal(a, b[rows])
 
 
 def test_rasterize_tiles_gradient_on_card_matches_cpu(cuda_device):

@@ -2,8 +2,8 @@
 with row offsets) equal to the JAX package's entry for entry; the port's
 rasterizer (plain version on the CPU) against the JAX oracle and the JAX
 Pallas rasterizer in interpret mode over the JAX kernel tests' shape sweep;
-the CUDA kernel's per-pixel algorithm (a sequential loop with early exit)
-against the plain version. The kernel itself is held to the plain version
+the CUDA kernel's per-pixel algorithm (chunks of splats evaluated ahead of a
+sequential transmittance chain with early exit) against the plain version. The kernel itself is held to the plain version
 in tests/test_torch_gpu.py, on the card."""
 import jax
 import jax.numpy as jnp
@@ -153,39 +153,46 @@ def test_pinned_property_example_matches_jax():
         np.testing.assert_allclose(np_(t), np.asarray(t_j), atol=ATOL, rtol=RTOL)
 
 
+KERNEL_CHUNK = 8  # tile_raster.cu's kChunk: splats evaluated ahead of the chain
+
+
 def _sequential_composite(splats_t, valid, *, tiles_x, tile_h, tile_w, row_offset):
-    """The CUDA kernel's algorithm, written as its per-pixel loop in numpy
-    float32: front to back, running T, stop before T would fall below eps."""
+    """The CUDA forward kernel's algorithm in float32 numpy, vectorized over
+    (tile, pixel): the list in chunks of KERNEL_CHUNK splats; for each chunk,
+    every splat's alpha first, with no branch (a dead splat gets alpha 0),
+    then the chain in list order: T * (1 - alpha), the stop rule (a live
+    splat is composited iff T after it stays >= eps), the colour and T as
+    selects.
+    Returns (rgb (T,3,P), t_final (T,P), n_contrib (T,P): one past the last
+    composited slot with alpha > 0)."""
     s, v = np_(splats_t), np_(valid)
-    t_count, _, k = s.shape
-    p = tile_h * tile_w
-    out = np.zeros((t_count, 3, p), np.float32)
-    tfin = np.ones((t_count, p), np.float32)
     f32 = np.float32
-    for ti in range(t_count):
-        ty, tx = divmod(ti, tiles_x)
-        for pi in range(p):
-            yy, xx = divmod(pi, tile_w)
-            px = f32(tx * tile_w + xx) + f32(0.5)
-            py = f32(ty * tile_h + row_offset + yy) + f32(0.5)
-            trans, c = f32(1.0), np.zeros(3, np.float32)
-            for i in range(k):
-                if not v[ti, i] > 0.5:
-                    continue
-                mx, my, ca, cb, cc, op = s[ti, :6, i]
-                dx, dy = px - mx, py - my
-                power = f32(-0.5) * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-                alpha = min(op * f32(np.exp(min(power, f32(0.0)))), f32(tr_ref.ALPHA_MAX))
-                if not (power <= 0 and alpha >= f32(tr_ref.ALPHA_MIN)):
-                    continue
-                t_next = trans * (f32(1.0) - alpha)
-                if t_next < f32(tr_ref.T_EPS):
-                    break
-                c += alpha * trans * s[ti, 6:9, i]
-                trans = t_next
-            out[ti, :, pi] = c
-            tfin[ti, pi] = trans
-    return out, tfin
+    t_count, _, k = s.shape
+    pid, tid = np.arange(tile_h * tile_w), np.arange(t_count)
+    px = ((tid[:, None] % tiles_x) * tile_w + pid[None] % tile_w).astype(f32) + f32(0.5)
+    py = ((tid[:, None] // tiles_x) * tile_h + row_offset + pid[None] // tile_w).astype(f32) + f32(0.5)
+    trans = np.ones(px.shape, f32)
+    rgb = np.zeros((3, *px.shape), f32)
+    n_contrib = np.zeros(px.shape, np.int32)
+    done = np.zeros(px.shape, bool)
+    for c0 in range(0, k, KERNEL_CHUNK):
+        ahead = []
+        for i in range(c0, min(c0 + KERNEL_CHUNK, k)):
+            mx, my, ca, cb, cc, op = (s[:, f, i, None] for f in range(6))
+            dx, dy = px - mx, py - my
+            power = f32(-0.5) * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            alpha = np.minimum(op * np.exp(np.minimum(power, f32(0.0))), f32(tr_ref.ALPHA_MAX))
+            live = (v[:, i, None] > 0.5) & (power <= 0) & (alpha >= f32(tr_ref.ALPHA_MIN))
+            ahead.append((i, np.where(live, alpha, f32(0.0))))
+        for i, alpha in ahead:
+            t_next = trans * (f32(1.0) - alpha)
+            take = ~done & (alpha > 0) & (t_next >= f32(tr_ref.T_EPS))
+            done |= ~(t_next >= f32(tr_ref.T_EPS))
+            w = alpha * trans
+            rgb = np.where(take, rgb + w * s[:, 6:9, i, None].transpose(1, 0, 2), rgb)
+            trans = np.where(take, t_next, trans)
+            n_contrib = np.where(take, i + 1, n_contrib)
+    return rgb.transpose(1, 0, 2), trans, n_contrib
 
 
 @pytest.mark.parametrize("row_offset", [0, 8])
@@ -205,10 +212,12 @@ def test_kernel_algorithm_matches_plain_version(row_offset):
     valid[2:, 3:] = 0.0  # sparse tiles: most pixels there never reach the stop rule
     kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
     out_p, t_p = tr_ref.composite_ref(torch.as_tensor(splats), torch.as_tensor(valid), **kw)
-    out_s, t_s = _sequential_composite(splats, valid, **kw)
+    out_s, t_s, nc_s = _sequential_composite(splats, valid, **kw)
     assert (t_s < 1e-3).any() and (t_s > 0.5).any()  # some pixels stopped early, some did not
-    np.testing.assert_allclose(np_(out_p), out_s, atol=1e-5, rtol=1e-4)
-    np.testing.assert_allclose(np_(t_p), t_s, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(np_(out_p), out_s, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(np_(t_p), t_s, atol=ATOL, rtol=RTOL)
+    want_nc = tr_ref.contrib_counts(torch.as_tensor(splats), torch.as_tensor(valid), **kw)
+    np.testing.assert_array_equal(nc_s, np_(want_nc))
 
 
 def test_cpu_tensors_never_reach_the_kernel():

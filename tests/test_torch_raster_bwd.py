@@ -2,9 +2,10 @@
 (``composite_bwd_ref``) against the JAX package's Pallas ``_bwd_kernel`` run
 in interpret mode, against autograd of the port's own forward, and against a
 step-by-step emulation of the CUDA kernel's per-pixel algorithm; the whole
-render's gradient against ``jax.grad`` of the JAX render. The CUDA kernel
-itself is held to ``composite_bwd_ref`` in tests/test_torch_gpu.py, on the
-card.
+render's gradient against ``jax.grad`` of the JAX render; the forward
+kernel's ``n_contrib`` residual (its emulation) against what the plain
+version implies. The CUDA kernel itself is held to ``composite_bwd_ref`` in
+tests/test_torch_gpu.py, on the card.
 
 Gradient tolerance: atol 2e-5 * max|g| and rtol 2e-4, the JAX package's own
 (tests/test_tile_raster_kernel.py::test_grad_allclose).
@@ -27,6 +28,7 @@ from repro_torch.kernels.tile_raster import ops as tr_ops
 from repro_torch.kernels.tile_raster import ref as tr_ref
 
 from conftest import make_cam, make_scene
+from test_torch_raster import _sequential_composite
 from torch_port_helpers import np_, to_port
 
 
@@ -106,80 +108,99 @@ def test_autograd_of_composite_ref_matches_composite_bwd_ref(seed, t_count, k, t
     assert_grad_close(auto, explicit)
 
 
-def _kernel_algorithm(s, valid, gout, gtfin, tiles_x, th, tw, row_offset):
+BWD_PIX = 1  # tile_raster.cu's kBwdPix: pixels a thread in the backward
+
+
+def _kernel_algorithm(s, valid, gout, gtfin, tfin, n_contrib, tiles_x, th, tw, row_offset):
     """tile_raster.cu's backward, step by step in float32 numpy, vectorized
-    over (tile, pixel): pass 1 walks front to back with the forward's running
-    product and stop rule for each pixel's last composited splat and final T;
-    pass 2 walks back, recovering T before each splat by division and keeping
-    the running B; the per-pixel gradients are then summed over the tile."""
+    over (tile, pixel). Each pixel starts from the forward's t_final and
+    n_contrib and walks back to the front: T before each splat is T after it
+    times 1/(1 - alpha), B is the running sum. (The kernel evaluates each
+    chunk's alphas ahead of the chains: the same values.) Then the sums in the
+    kernel's order: each thread adds its BWD_PIX pixels (p, then p + threads,
+    ...), each warp its 32 lanes in order, then the warps in order."""
     f32 = np.float32
     t_count, _, k = s.shape
     p = th * tw
+    n_thr = ((p + BWD_PIX - 1) // BWD_PIX + 31) // 32 * 32
     pid = np.arange(p)
     tid = np.arange(t_count)
     px = ((tid[:, None] % tiles_x) * tw + pid[None] % tw).astype(f32) + f32(0.5)
     py = ((tid[:, None] // tiles_x) * th + row_offset + pid[None] // tw).astype(f32) + f32(0.5)
-
-    def terms(j):
+    gr, gg, gb = gout[:, 0], gout[:, 1], gout[:, 2]
+    t_cur, bsum = tfin.copy(), gtfin * tfin
+    d = np.zeros((t_count, 11, k), f32)
+    for j in range(k - 1, -1, -1):
         dx = px - s[:, 0, j, None]
         dy = py - s[:, 1, j, None]
         power = f32(-0.5) * (s[:, 2, j, None] * dx * dx + s[:, 4, j, None] * dy * dy) - s[:, 3, j, None] * dx * dy
         e = np.exp(np.minimum(power, f32(0)))
         alpha_raw = s[:, 5, j, None] * e
         alpha = np.minimum(alpha_raw, f32(0.99))
-        live = (valid[:, j, None] > 0.5) & (power <= 0) & (alpha >= f32(1 / 255))
-        return dx, dy, power, e, alpha_raw, alpha, live
-
-    trans = np.ones((t_count, p), f32)
-    last = np.full((t_count, p), -1)
-    done = np.zeros((t_count, p), bool)
-    for j in range(k):
-        *_, alpha, live = terms(j)
-        t_next = trans * (f32(1) - alpha)
-        stop = live & ~done & (t_next < f32(1e-4))
-        take = live & ~done & ~stop
-        trans = np.where(take, t_next, trans)
-        last = np.where(take, j, last)
-        done |= stop
-
-    gr, gg, gb, gt = gout[:, 0], gout[:, 1], gout[:, 2], gtfin
-    t_cur, bsum = trans, gt * trans
-    d = np.zeros((t_count, 11, k), f32)
-    for j in range(k - 1, -1, -1):
-        dx, dy, power, e, alpha_raw, alpha, live = terms(j)
-        hit = live & (j <= last)
-        one_minus = f32(1) - alpha
-        t_excl = np.where(hit, t_cur / one_minus, t_cur)
+        hit = (valid[:, j, None] > 0.5) & (j < n_contrib) & (power <= 0) & (alpha >= f32(1 / 255))
+        rcp = f32(1) / (f32(1) - alpha)
+        t_excl = t_cur * rcp
         w = alpha * t_excl
         dw = s[:, 6, j, None] * gr + s[:, 7, j, None] * gg + s[:, 8, j, None] * gb
-        dalpha = dw * t_excl - bsum / one_minus
+        dalpha = dw * t_excl - bsum * rcp
         bsum = np.where(hit, bsum + dw * w, bsum)
-        t_cur = t_excl
-        g = np.zeros((9, t_count, p), f32)
-        g[6], g[7], g[8] = gr * w, gg * w, gb * w
-        unclamped = hit & (alpha_raw < f32(0.99))
-        g[5] = dalpha * e
+        t_cur = np.where(hit, t_excl, t_cur)
+        g = np.zeros((9, t_count, BWD_PIX * n_thr), f32)
+        g[6, :, :p], g[7, :, :p], g[8, :, :p] = gr * w, gg * w, gb * w
+        g[5, :, :p] = dalpha * e
         dpower = dalpha * s[:, 5, j, None] * e
-        g[2] = dpower * (f32(-0.5) * dx * dx)
-        g[3] = dpower * (-dx * dy)
-        g[4] = dpower * (f32(-0.5) * dy * dy)
-        g[0] = -(dpower * (-s[:, 2, j, None] * dx - s[:, 3, j, None] * dy))
-        g[1] = -(dpower * (-s[:, 4, j, None] * dy - s[:, 3, j, None] * dx))
-        g[6:] = np.where(hit, g[6:], 0)
-        g[5] = np.where(unclamped, g[5], 0)
-        g[:5] = np.where(unclamped & (power < 0), g[:5], 0)
-        d[:, :9, j] = g.sum(axis=2).T
+        g[2, :, :p] = dpower * (f32(-0.5) * dx * dx)
+        g[3, :, :p] = dpower * (-dx * dy)
+        g[4, :, :p] = dpower * (f32(-0.5) * dy * dy)
+        g[0, :, :p] = -(dpower * (-s[:, 2, j, None] * dx - s[:, 3, j, None] * dy))
+        g[1, :, :p] = -(dpower * (-s[:, 4, j, None] * dy - s[:, 3, j, None] * dx))
+        unclamped = hit & (alpha_raw < f32(0.99))
+        g[6:, :, :p] = np.where(hit, g[6:, :, :p], 0)
+        g[5, :, :p] = np.where(unclamped, g[5, :, :p], 0)
+        g[:5, :, :p] = np.where(unclamped & (power < 0), g[:5, :, :p], 0)
+        lanes = g[:, :, :n_thr]
+        for h in range(1, BWD_PIX):
+            lanes = lanes + g[:, :, h * n_thr:(h + 1) * n_thr]
+        lanes = lanes.reshape(9, t_count, n_thr // 32, 32)
+        per_warp = lanes[..., 0]
+        for lane in range(1, 32):
+            per_warp = per_warp + lanes[..., lane]
+        acc = np.zeros((9, t_count), f32)
+        for wi in range(n_thr // 32):
+            acc = acc + per_warp[:, :, wi]
+        d[:, :9, j] = acc.T
     return d
 
 
-@pytest.mark.parametrize("seed,t_count,k,tiles_x,th,tw,row_offset", [CASES[0], CASES[1]])
+@pytest.mark.parametrize("seed,t_count,k,tiles_x,th,tw,row_offset", [CASES[0], CASES[1], CASES[3]])
 def test_kernel_algorithm_matches_composite_bwd_ref(seed, t_count, k, tiles_x, th, tw, row_offset):
     s, valid, gout, gtfin = _slabs(seed, t_count, k, tiles_x, th, tw, row_offset)
     s[:, 5, :8] = 1.0  # opaque front splats: the stop rule fires in many pixels
-    got = _kernel_algorithm(s, valid, gout, gtfin, tiles_x, th, tw, row_offset)
-    want = tr_ref.composite_bwd_ref(*map(torch.tensor, (s, valid, gout, gtfin)),
-                                    tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
+    kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
+    _, tfin, n_contrib = _sequential_composite(s, valid, **kw)  # the forward kernel's residuals
+    got = _kernel_algorithm(s, valid, gout, gtfin, tfin, n_contrib, tiles_x, th, tw, row_offset)
+    want = tr_ref.composite_bwd_ref(*map(torch.tensor, (s, valid, gout, gtfin)), **kw)
     assert_grad_close(got, want)
+
+
+@pytest.mark.parametrize("seed,t_count,k,tiles_x,th,tw,row_offset", [CASES[0], CASES[1]])
+def test_forward_algorithm_n_contrib_matches_plain(seed, t_count, k, tiles_x, th, tw, row_offset):
+    """The forward kernel's n_contrib (its emulation) is what the plain
+    version implies: the last slot that is alive (T after it >= eps) with
+    alpha > 0, plus one; 0 where no splat is composited."""
+    s, valid, _, _ = _slabs(seed, t_count, k, tiles_x, th, tw, row_offset)
+    s[:, 5, :8] = 1.0  # opaque front splats: the stop rule fires in many pixels
+    kw = dict(tiles_x=tiles_x, tile_h=th, tile_w=tw, row_offset=row_offset)
+    _, _, got = _sequential_composite(s, valid, **kw)
+    st, vt = torch.tensor(s), torch.tensor(valid)
+    px, py = tr_ref.tile_pixel_coords(torch.arange(t_count), tiles_x, th, tw, row_offset)
+    alpha, t_incl = tr_ref._alpha_and_trans(st.transpose(1, 2), vt > 0.5, px, py)
+    took = (t_incl >= tr_ref.T_EPS) & (alpha > 0)                      # (T, K, P)
+    slot = torch.arange(1, k + 1)[None, :, None]
+    want = torch.where(took, slot, 0).amax(dim=1)
+    assert (want == 0).any() and (want > 0).any() and (want < k).any()
+    np.testing.assert_array_equal(got, np_(want))
+    np.testing.assert_array_equal(np_(tr_ref.contrib_counts(st, vt, **kw)), np_(want))
 
 
 def test_composite_function_gives_valid_no_gradient_and_needs_cuda_for_the_kernel():
@@ -191,8 +212,10 @@ def test_composite_function_gives_valid_no_gradient_and_needs_cuda_for_the_kerne
     assert dv is None and ds.shape == st.shape
     assert (tr_ops.launch_count.n, tr_ops.bwd_launch_count.n) == before  # CPU: plain versions
     # the kernel wrapper itself takes CUDA tensors only: no plain fallback
+    tfin, n_contrib = tfin.detach(), torch.zeros(tfin.shape, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        tr_ops.composite_bwd(*map(torch.tensor, (s, valid, gout, gtfin)), tiles_x=2, tile_h=16, tile_w=16)
+        tr_ops.composite_bwd(*map(torch.tensor, (s, valid, gout, gtfin)), tfin, n_contrib, tiles_x=2, tile_h=16,
+                             tile_w=16)
 
 
 @functools.lru_cache(maxsize=None)
