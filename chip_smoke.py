@@ -2,10 +2,12 @@
 """Chip smoke of the PyTorch/CUDA port: build the kernels, hold each against
 its plain PyTorch version on the card, time both, serve a 4M-Gaussian
 Kingsnake scene at 512 px through the port's ``RenderServer``, train the
-same scene for a few steps through ``GSTrainer``, then prefill and decode
+same scene for a few steps through ``GSTrainer``, on one device and on a
+mesh of ranks over NCCL, then prefill and decode
 the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
+    python3 chip_smoke.py --ranks-only    # phase 5b alone, e.g. on several cards
 
 Run from the root of a checkout on a machine with one NVIDIA card (an H100
 is what the numbers in PERF.md were taken on). It builds the kernels from
@@ -41,6 +43,19 @@ Phases, in order (any failure exits non-zero):
      breakdown and peak memory; a small train step, and a densify round
      that clones, splits and prunes followed by one more step, each checked
      against the port's CPU path;
+  5b. ranks: a world-1 NCCL process group drives ``GSTrainer(mesh=...)``
+     at the training configuration (the splats' all-gather and its
+     reduce-scatter, the loss sums' all-reduce and the fused gradient
+     all-reduce are real NCCL calls over groups of one; with one model
+     rank there are no pixel strips, so the SSIM halo exchange and
+     per-strip binning run only across cards) for 3 steps in each gather mode from phase 5's initial state, with
+     the launch counters zeroed just before and read just after; bitwise
+     equal to the one-device trainer on the same batches, step p50 beside
+     it and beside phase 5's; the NCCL version and the group's init time;
+     the computed all-gather bytes of (1, 2) and (1, 4) in both modes;
+     with two or more cards, (1, 2) and (1, 4) in both modes over NCCL
+     with one rank per card, 8 steps each, the losses held to the
+     one-device trainer at rtol 1e-5, step p50 beside its;
   7. lm: the attention kernel against its plain version (the JAX kernel
      test's sweep, Skv 9000, a 1024-key window and a ragged long case at
      hd 128, each in float32 on the CUDA-core kernel and in bfloat16 on the
@@ -58,7 +73,8 @@ Phases, in order (any failure exits non-zero):
      peak memory;
   6. the result, printed last (after phase 7): the kernels' JSON line (``launches`` from each
      kernel's main path: training for the splatting kernels, the LM prefill
-     for attention; ``launches_by_path`` with every path's own counts) and
+     for attention; ``launches_by_path`` with every path's own counts,
+     ``ranks`` the sharded fits of phase 5b) and
      the final status line.
 """
 from __future__ import annotations
@@ -568,6 +584,174 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
     return {"entry": entry, "lm_prefill": prefill_launches, "lm_serve_cli": cli_launches}
 
 
+RANKS_STEPS = 3
+RANKS_CARD_STEPS = 8
+RANKS_DIR = ROOT / "build" / "repro_torch_ranks"
+
+
+def _rank_worker(rank: int, n: int, mode: str, steps: int, res: int, n_views: int, device_type: str,
+                 timeout_s: float) -> None:
+    """One rank of a (1, n) run across cards: NCCL on cuda:rank (gloo on
+    the CPU when the phase is rehearsed there), the phase-5 model and views
+    from ``RANKS_DIR``, ``steps`` steps through ``GSTrainer(mesh=...)``;
+    rank 0 writes the losses and step times."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs.gs_datasets import DATASETS, paper_gs_config
+    from repro_torch.core import gaussians as G
+    from repro_torch.data.views import ViewDataset
+    from repro_torch.launch.mesh import init_ranks, make_gs_mesh
+    from repro_torch.launch.train import GSTrainer
+    from repro_torch.volume import datasets as VD
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_{mode}_{n}", rank=rank, world_size=n,
+               timeout_s=timeout_s)
+    mesh = make_gs_mesh(1, n, device=dev)
+    host = np.load(RANKS_DIR / "host.npz")
+    ds = DATASETS["kingsnake"]
+    data = ViewDataset(getattr(VD, ds.volume)(res=ds.volume_res), n_views=n_views, img_h=res, img_w=res, radius=3.0,
+                       cache_dir=str(RANKS_DIR), device=dev)
+    cfg = paper_gs_config(res, gather_mode=mode, max_steps=steps)
+    tr = GSTrainer(cfg, params=G.GaussianModel(*[host[f] for f in G.GaussianModel._fields]), mesh=mesh,
+                   verbose=False)
+    losses = tr.fit(data, steps=steps, densify=False)
+    if rank == 0:
+        (RANKS_DIR / f"losses_{mode}_{n}.json").write_text(json.dumps({"losses": losses, "step_ms": tr.step_ms_log}))
+    torch.distributed.destroy_process_group()
+
+
+def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
+    """Training across ranks at the full configuration. At world size 1 a
+    NCCL group drives ``GSTrainer(mesh=...)`` (the gathers, reduce-scatters
+    and all-reduces are real NCCL calls over groups of one; no pixel strips,
+    so no halo exchange) for RANKS_STEPS steps in each gather mode, from the same state on
+    the same batches as the one-device trainer: bitwise equal, or the phase
+    fails. With two or more cards, (1, 2) and (1, 4) over NCCL with one rank
+    per card in each gather mode, the losses held to the one-device trainer
+    at rtol 1e-5."""
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.core.train import all_gather_bytes_per_step
+    from repro_torch.launch.mesh import init_ranks, make_gs_mesh
+    from repro_torch.launch.train import GSTrainer
+    from repro_torch.utils.tree import tree_leaves
+
+    res = data.img_h
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
+    for f in RANKS_DIR.glob("store_*"):
+        f.unlink()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_1", rank=0, world_size=1, timeout_s=300)
+    mesh = make_gs_mesh(1, 1, device=dev)
+    mesh.barrier()
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    log(f"ranks: NCCL {nccl}, world-1 group and (1, 1) mesh up in {init_ms:.1f} ms (backend {dist.get_backend()})")
+
+    def fit(mode: str, with_mesh: bool):
+        cfg = paper_gs_config(res, gather_mode=mode, max_steps=RANKS_STEPS)
+        data.rng = np.random.default_rng(0)  # the same batches for every run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        tr = GSTrainer(cfg, device=dev, params=host, mesh=mesh if with_mesh else None, verbose=False)
+        for c in counters.values():
+            c.n = 0
+        losses = tr.fit(data, steps=RANKS_STEPS, densify=False)
+        torch.cuda.synchronize()
+        # the run's own peak: above what was allocated when it started
+        return tr, losses, [c.n for c in counters.values()], torch.cuda.max_memory_allocated(dev) - base
+
+    out = {"launches": dict.fromkeys(counters, 0), "step_ms": {}, "peak_bytes": {}}
+    one_ms = {}
+    for mode in ("projected", "params3d"):
+        ref, ref_losses, _, ref_peak = fit(mode, False)
+        tr, losses, launches, peak = fit(mode, True)
+        same = losses == ref_losses and all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.state),
+                                                                               tree_leaves(ref.state)))
+        for k, v in zip(counters, launches):
+            out["launches"][k] += v
+        p50, p50_one = float(np.median(tr.step_ms_log)), float(np.median(ref.step_ms_log))
+        out["step_ms"][mode], one_ms[mode] = p50, p50_one
+        out["peak_bytes"][mode] = {"world1": peak, "one_device": ref_peak}
+        log(f"ranks {mode} ({card}): world-1 NCCL mesh vs one device, {RANKS_STEPS} steps at {host.means.shape[0]} "
+            f"Gaussians, {res} px, batch {tr.cfg.batch_size}: losses {[round(x, 7) for x in losses]}; bitwise equal "
+            f"(losses, parameters, Adam moments, densify statistics): {same}; step ms {[round(x, 3) for x in tr.step_ms_log]} "
+            f"p50 {p50:.3f} vs one device {[round(x, 3) for x in ref.step_ms_log]} p50 {p50_one:.3f}; "
+            f"peak above its start {peak} B vs one device {ref_peak} B; launches {dict(zip(counters, launches))}")
+        if not same:
+            again, again_losses, _, _ = fit(mode, False)
+            repro = again_losses == ref_losses and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(again.state), tree_leaves(ref.state)))
+            raise SystemExit(f"ranks {mode}: the world-1 sharded step is not bitwise the one-device step "
+                             f"(the one-device step reproduces itself bitwise: {repro})")
+        if launches[:3] != [4 * RANKS_STEPS] * 3 or launches[3]:
+            raise SystemExit(f"ranks {mode}: launches {launches}, want {4 * RANKS_STEPS} of each splatting kernel")
+        del ref, tr
+    dist.destroy_process_group()
+    out["one_device_step_ms"] = one_ms
+
+    cfg4 = paper_gs_config(res)
+    for m in (2, 4):
+        shape = types.SimpleNamespace(shape={"data": 1, "model": m})
+        by_mode = {mode: all_gather_bytes_per_step(dataclasses.replace(cfg4, gather_mode=mode), shape,
+                                                   host.means.shape[0]) for mode in ("projected", "params3d")}
+        log(f"ranks: all_gather_bytes_per_step (computed) at (1, {m}), {host.means.shape[0]} Gaussians, batch "
+            f"{cfg4.batch_size}: {by_mode}")
+        out[f"gather_bytes_1x{m}"] = by_mode
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"ranks: {n_cards} card on this machine: the ranks phase ran at world size 1 only; (1, n) across cards "
+            "not run")
+        return out
+    # (1, n) with one rank per card, n = 2 and 4 (512 px in 16-px tiles splits into whole-tile strips), each
+    # held to the one-device trainer on the same batches; step p50 over the steps after the first two
+    # (NCCL's communicators and the kernels warm up in them)
+    np.savez(RANKS_DIR / "host.npz", **{f: getattr(host, f) for f in host._fields})
+    np.save(RANKS_DIR / f"kingsnake_like_{data.n_views}v_{res}x{res}.npy", data.gt)
+    out["multi_card"] = {}
+    for mode in ("projected", "params3d"):
+        data.rng = np.random.default_rng(0)
+        one = GSTrainer(paper_gs_config(res, gather_mode=mode, max_steps=RANKS_CARD_STEPS), device=dev, params=host,
+                        verbose=False)
+        want = one.fit(data, steps=RANKS_CARD_STEPS, densify=False)
+        world1_ms = one.step_ms_log
+        del one
+        for n in [k for k in (2, 4) if k <= n_cards]:
+            ctx = torch.multiprocessing.start_processes(
+                _rank_worker, args=(n, mode, RANKS_CARD_STEPS, res, data.n_views, dev.type, 300.0), nprocs=n,
+                join=False, start_method="spawn")
+            deadline = time.perf_counter() + 600
+            try:
+                while not ctx.join(timeout=5):
+                    if time.perf_counter() > deadline:
+                        raise SystemExit(f"ranks: the (1, {n}) run across cards did not finish in 600 s")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.terminate()
+            got = json.loads((RANKS_DIR / f"losses_{mode}_{n}.json").read_text())
+            ok = np.allclose(got["losses"], want, rtol=1e-5, atol=0)
+            p50, p50_1 = float(np.median(got["step_ms"][2:])), float(np.median(world1_ms[2:]))
+            log(f"ranks (1, {n}) {mode} over NCCL across {n} cards ({card}): {RANKS_CARD_STEPS} steps, losses "
+                f"{got['losses']} vs world 1 {want}, within rtol 1e-5: {ok}; step ms (rank 0) "
+                f"{[round(x, 3) for x in got['step_ms']]} p50 of steps 3-{RANKS_CARD_STEPS} {p50:.3f} vs one device "
+                f"{[round(x, 3) for x in world1_ms]} p50 {p50_1:.3f} (x{p50_1 / p50:.3f})")
+            if not ok:
+                raise SystemExit(f"ranks: (1, {n}) {mode} losses differ from world 1 beyond rtol 1e-5")
+            out["multi_card"][f"{mode}_1x{n}"] = {**got, "world1_losses": want, "world1_step_ms": world1_ms,
+                                                  "p50_ms": p50, "world1_p50_ms": p50_1}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -578,6 +762,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-steps", type=int, default=6, help="train steps (one densify round at step 3)")
     ap.add_argument("--train-views", type=int, default=8, help="ray-marched orbit views to train on")
     ap.add_argument("--eval-views", type=int, default=2)
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="build, make the scene and its training views, run phase 5b (ranks) alone and print its "
+                         "result as JSON on the last line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -666,6 +853,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"ground truth: {args.train_views} orbit views ray-marched at {cfg.img_h} px on the card "
         f"({time.perf_counter() - t0:.2f} s), covered share {float((data.gt.max(-1) > 0).mean()):.4f}")
+    if args.ranks_only:
+        counters = {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count,
+                    "tile_raster_bwd": tr_ops.bwd_launch_count, "flash_attention": fa_ops.launch_count}
+        print(json.dumps(ranks_phase(dev, card, host, data, counters)), flush=True)
+        return 0
 
     # ---------------------------------------------------------- 2. compare
     proj_k = gp_ops.project_packed(g_dev, cam)
@@ -994,13 +1186,13 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.3f} ms; whole step {whole:.3f} ms")
     profile_step(lambda: trainer.step_fn(trainer.state, cams_b, gt_b), float(np.median(step_ms)))
-    del packed, pk_leaf, pk_sorted, img, imgs, leaves, gpacked, step_grads, trainer, data
+    del packed, pk_leaf, pk_sorted, img, imgs, leaves, gpacked, step_grads, trainer
 
     # a small train step on the card against the same step on the CPU
     small = host._replace(**{f: getattr(host, f)[: 20000] for f in host._fields})
     scfg = paper_gs_config(64)
     scams = camera_slice(orbit_cameras(12, img_h=64, img_w=64, radius=3.0), torch.arange(4))
-    sgt = ViewDataset(vol, n_views=12, img_h=64, img_w=64, radius=3.0).gt[:4]
+    sgt = ViewDataset(vol, n_views=12, img_h=64, img_w=64, radius=3.0, device=dev).gt[:4]
     res_small = []
     for d in (dev, torch.device("cpu")):
         st, m = make_train_step(scfg)(init_state(G.from_numpy(small, d)), scams, torch.tensor(sgt, device=d))
@@ -1050,9 +1242,17 @@ def main(argv=None) -> int:
     if abs(l_k - l_c) > 1e-5 * abs(l_c) or gbad:
         raise SystemExit("card train step after a resizing densify round disagrees with the CPU path")
 
-    # ---------------------------------------------------------- 7. lm
+    # ---------------------------------------------------------- 5b. ranks
     counters = {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count,
                 "tile_raster_bwd": tr_ops.bwd_launch_count, "flash_attention": fa_ops.launch_count}
+    ranks = ranks_phase(dev, card, host, data, counters)
+    ranks_launches = ranks["launches"]
+    log(f"ranks ({card}): world-1 sharded step p50 {ranks['step_ms']} ms, one-device step in the same phase "
+        f"{ranks['one_device_step_ms']} ms, phase 5's one-device p50 {float(np.median(step_ms)):.3f} ms; launches "
+        f"{ranks_launches}")
+    del data
+
+    # ---------------------------------------------------------- 7. lm
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
                       ["--arch", "qwen3-0.6b", "--device", "cuda", "--seed", str(args.seed)], counters)
 
@@ -1060,8 +1260,8 @@ def main(argv=None) -> int:
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     def by_path(i: int, name: str) -> dict:
-        return {"serve": serve_launches[i], "train": train_launches[i], "lm_prefill": lm_res["lm_prefill"][name],
-                "lm_serve_cli": lm_res["lm_serve_cli"][name]}
+        return {"serve": serve_launches[i], "train": train_launches[i], "ranks": ranks_launches[name],
+                "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name]}
 
     kernels = [
         {"name": "gsproject", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",

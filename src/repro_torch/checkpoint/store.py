@@ -9,6 +9,11 @@ checkpoint written by one package restores in the other:
 Keys are the dotted paths of the leaves in a tree of NamedTuples, dicts and
 lists/tuples: NamedTuple fields by name, dict entries by key, sequence items
 by index (``params.means``, ``adam.m.sh``, ``adam.count``, ``step``).
+
+A train state sharded over the model axis of a mesh is saved as full arrays:
+every rank gathers it, rank 0 writes, then all ranks meet at a barrier. So
+a checkpoint written across ranks serves from one device and restores in
+the JAX package. Restoring onto a mesh gives each rank its own shard.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import re
 
 import numpy as np
 import torch
+
+from repro_torch.core.train import gather_state, shard_state
 
 
 def _is_leaf(x) -> bool:
@@ -57,8 +64,17 @@ def _leaf_to_host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
+def save_checkpoint(ckpt_dir: str, step: int, tree, *, mesh=None) -> str:
+    """Write ``tree`` as ``<ckpt_dir>/step_<step>``. With ``mesh``, ``tree``
+    is a ``GSTrainState`` sharded over it and every rank of the mesh calls
+    this (it gathers the shards); rank 0 writes."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if mesh is not None:
+        tree = gather_state(tree, mesh)
+        if mesh.rank == 0:
+            save_checkpoint(ckpt_dir, step, tree)
+        mesh.barrier()
+        return d
     os.makedirs(d, exist_ok=True)
     manifest = {}
     for key, leaf in _flatten(tree).items():
@@ -77,11 +93,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like, device=None):
+def restore_checkpoint(ckpt_dir: str, step: int, like, device=None, *, mesh=None):
     """Restore into the structure of ``like``. Leaf shapes come from the
     files, so ``like`` may hold a model of another size (a checkpoint taken
     after densification). Each leaf becomes a tensor on ``device`` (default:
-    the device of the matching ``like`` leaf if it is a tensor, else the CPU)."""
+    the device of the matching ``like`` leaf if it is a tensor, else the CPU).
+    With ``mesh``, ``like`` is a ``GSTrainState`` and each rank gets its own
+    shard of the saved full state."""
+    if mesh is not None:
+        return shard_state(restore_checkpoint(ckpt_dir, step, like, device), mesh)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)

@@ -1,15 +1,18 @@
-"""Densification / pruning / re-padding (3D-GS adaptive control), one device.
+"""Densification / pruning / shard rebalancing (3D-GS adaptive control).
 
 Runs on the host between train steps, in numpy, exactly as the JAX package's
 ``core/densify.py`` does (the Gaussian count changes, so it is an
 out-of-graph phase there too): the state comes to the host, clone / split /
-prune and the padding to ``pad_quantum`` run on numpy arrays with the same
+prune and the padding run on numpy arrays with the same
 ``np.random.Generator`` draws in the same order, and the new state goes back
 to the device the old one was on. Given the same generator, both packages
 make the same children and the same permutation.
 
-The JAX package also re-partitions the set into equal shards over the model
-axis; on one device there is one shard (``n_shards=1``).
+The rebalance step is Grendel's dynamic Gaussian redistribution: after
+clone / split / prune the global set is padded to ``n_shards *
+pad_quantum`` with dead Gaussians and shuffled, so every model-axis shard
+carries the same load. Across ranks every rank gathers the full state, runs
+the same round with the same generator, and keeps its own row block.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 
 from repro_torch.core import gaussians as G
 from repro_torch.core.config import GSConfig
-from repro_torch.core.train import GSTrainState, init_state, state_to_numpy
+from repro_torch.core.sharding import Mesh
+from repro_torch.core.train import GSTrainState, gather_state, init_state, state_to_numpy
 from repro_torch.optim.adam import AdamState
 
 DEAD_LOGIT = -20.0  # sigmoid(-20) ~ 2e-9 < 1/255: never rasterized, zero grads
@@ -50,17 +54,25 @@ def densify_and_rebalance(
     n_shards: int = 1,
     scene_extent: float = 1.0,
     rng: np.random.Generator | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[GSTrainState, DensifyReport]:
-    """3D-GS adaptive density control + padding to the shard quantum.
+    """3D-GS adaptive density control + equal re-sharding.
 
     clone: high view-space grad, small world size (under-reconstruction)
     split: high view-space grad, large world size (over-reconstruction)
     prune: opacity below threshold
-    """
-    if n_shards != 1:
-        raise NotImplementedError("re-sharding over ranks is not ported yet (one device, one shard)")
+
+    With ``mesh``, ``state`` is this rank's shard and ``n_shards`` must be
+    the model axis's size: the round runs on the gathered full state (a
+    collective: every rank of the mesh calls it, with the same generator)
+    and returns this rank's shard of the new state. The report counts the
+    full state."""
     rng = rng or np.random.default_rng(0)
     device = state.params.means.device
+    if mesh is not None:
+        if n_shards != mesh.model.size:
+            raise ValueError(f"n_shards {n_shards} != the mesh's model axis {mesh.model.size}")
+        state = gather_state(state, mesh)
     h = state_to_numpy(state)
     p = h.params
     n0 = p.means.shape[0]
@@ -126,6 +138,10 @@ def densify_and_rebalance(
     new_params.quats[n_live:, 0] = 1.0
     new_m = G.GaussianModel(*[pad_field(a) for a in new_m])
     new_v = G.GaussianModel(*[pad_field(a) for a in new_v])
+    if mesh is not None:  # this rank's row block
+        k, j = n_padded // n_shards, mesh.model.index
+        new_params, new_m, new_v = (G.GaussianModel(*[a[j * k:(j + 1) * k] for a in t])
+                                    for t in (new_params, new_m, new_v))
 
     new_state = init_state(G.from_numpy(new_params, device))
     new_state = new_state._replace(

@@ -1,23 +1,25 @@
-"""3D-GS train step and eval renders (PyTorch, one device).
+"""3D-GS train step and eval renders (PyTorch), on one device or across
+ranks.
 
-``make_train_step(cfg)`` returns the step: project -> depth sort -> bin ->
-rasterize each view of the batch -> L1 + D-SSIM -> backward -> Adam with a
-learning rate per field. On a CUDA device three hand-written kernels carry
-it: the projection (its backward is the plain version's VJP, as in the JAX
-package), the rasterizer forward and the rasterizer backward. On the CPU
-the plain PyTorch versions run, and the CPU tests hold them to the JAX
-package.
+``make_train_step(cfg, mesh)`` returns the step: project -> gather over the
+model axis -> depth sort -> bin -> rasterize each view (or each view's pixel
+strip) -> L1 + D-SSIM over the mesh -> backward (the gather's backward is a
+reduce-scatter) -> the fused all-reduce of the packed gradients over the
+data axis -> Adam with a learning rate per field on the own shard. It is
+the JAX package's ``shard_map`` step, with one process per rank and
+``torch.distributed`` collectives (``core/sharding.py``). With no mesh the
+collectives are identities and there are no strips: the one-device step.
+The paper's replicated baseline is the same code on a mesh with model=1.
 
-The JAX package runs the step under ``shard_map`` over a (data, model)
-mesh. This is that step on a (1, 1) mesh with ``gather_mode="projected"``:
-the all-gather of projected splats over the model axis and the psum of
-gradients over the data axis are identities on one device, and there are
-no pixel strips. Sharding over ranks comes with the port's multi-rank slice.
+On a CUDA device three hand-written kernels carry it: the projection (its
+backward is the plain version's VJP, as in the JAX package), the rasterizer
+forward and the rasterizer backward. On the CPU the plain PyTorch versions
+run, and the CPU tests hold them to the JAX package.
 
 The serving stack renders through the eval factories: ``make_eval_render``
-(one view), ``make_batched_eval_render`` (a batch of views, the serving hot
-path) and ``make_tile_row_render`` (one tile row of one view, the
-partial-render primitive of the tile cache).
+(one view; across ranks too), ``make_batched_eval_render`` (a batch of
+views, the serving hot path) and ``make_tile_row_render`` (one tile row of
+one view, the partial-render primitive of the tile cache).
 """
 from __future__ import annotations
 
@@ -25,15 +27,17 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import gaussians as G
 from repro_torch.core import projection as P
 from repro_torch.core import render as R
 from repro_torch.core.config import GSConfig
-from repro_torch.core.sharding import distributed_gs_loss
+from repro_torch.core.sharding import Mesh, all_gather, distributed_gs_loss, gather_rows, reduce_scatter_rows
 from repro_torch.optim.adam import AdamState, adam_init, adam_update
 from repro_torch.optim.schedules import expon_lr, grendel_lr_scale
+from repro_torch.utils.tree import pack_pytree
 
 
 class GSTrainState(NamedTuple):
@@ -98,18 +102,105 @@ def state_to_numpy(state: GSTrainState) -> GSTrainState:
     )
 
 
-def shard_balance(state: GSTrainState, *, opacity_thresh: float = 0.005) -> dict:
-    """Per-model-shard load statistics (one shard on one device): ``alive``
-    counts Gaussians whose opacity clears ``opacity_thresh``, ``visible``
-    slots that have ever projected on screen (``max_radii > 0``), and
-    ``projected`` the accumulated per-view visibility tallies. ``imbalance``
-    is max/mean of the per-shard alive counts (1.0 = balanced; 0.0 only for
-    an all-dead model)."""
+def _map_rows(state: GSTrainState, fn) -> GSTrainState:
+    """Apply ``fn`` to every per-Gaussian leaf (params, Adam moments, densify
+    statistics); the step and the Adam count are replicated and stay."""
+    def model(mm):
+        return G.GaussianModel(*[fn(x) for x in mm])
+
+    return GSTrainState(
+        params=model(state.params),
+        adam=AdamState(model(state.adam.m), model(state.adam.v), state.adam.count),
+        step=state.step,
+        grad2d_accum=fn(state.grad2d_accum),
+        vis_count=fn(state.vis_count),
+        max_radii=fn(state.max_radii),
+    )
+
+
+def shard_state(state: GSTrainState, mesh: Mesh) -> GSTrainState:
+    """This rank's model shard of a full state: contiguous row blocks, rank
+    j of the model axis holding rows [j*n/m, (j+1)*n/m) (``PS("model")`` in
+    the JAX package's ``state_shardings``). Data replicas hold the same
+    shard."""
+    m, j = mesh.model.size, mesh.model.index
+    n = state.params.n
+    if n % m:
+        raise ValueError(f"{n} Gaussians do not split into {m} equal shards")
+    k = n // m
+    return _map_rows(state, lambda x: x[j * k:(j + 1) * k].clone())
+
+
+def _row_leaves(state: GSTrainState) -> list[torch.Tensor]:
+    return [*state.params, *state.adam.m, *state.adam.v, state.grad2d_accum, state.vis_count, state.max_radii]
+
+
+def gather_state(state: GSTrainState, mesh: Mesh) -> GSTrainState:
+    """The full state on every rank, from each rank's model shard: the
+    per-Gaussian leaves cross the model axis as one (n_local, F) float32
+    all-gather (a collective: every rank of the mesh calls it)."""
+    rows = _row_leaves(state)
+    k = state.params.n
+    full = gather_rows(torch.cat([x.reshape(k, -1).to(torch.float32) for x in rows], dim=1), mesh.model)
+    cols = torch.split(full, [x[:1].numel() for x in rows], dim=1)
+    it = iter(c.reshape((full.shape[0],) + tuple(x.shape[1:])).to(x.dtype).contiguous() for c, x in zip(cols, rows))
+    return _map_rows(state, lambda _: next(it))
+
+
+def resolve_gather_mode(cfg: GSConfig, mesh) -> str:
+    """The comm schedule ``make_train_step`` will actually use (resolves
+    ``"auto"`` exactly like the step builder does). ``mesh`` is anything
+    with a ``shape`` dict holding the ``"data"`` and ``"model"`` sizes;
+    None is one device."""
+    d, m = (mesh.shape["data"], mesh.shape["model"]) if mesh is not None else (1, 1)
+    mode = cfg.gather_mode
+    if mode == "auto":
+        mode = "params3d" if (cfg.batch_size // d) >= 2 and m > 1 else "projected"
+    if mode not in ("projected", "params3d"):
+        raise ValueError(f"unknown gather_mode {cfg.gather_mode!r}")
+    return mode
+
+
+def all_gather_bytes_per_step(cfg: GSConfig, mesh, n_total: int) -> int:
+    """Analytic model-axis all-gather payload one train step materializes per
+    rank (bytes of the gathered tensors; float32): ``projected`` gathers
+    11-float splats per local view, ``params3d`` the 3D state once per
+    step. Computed from the shapes, not measured."""
+    d, m = (mesh.shape["data"], mesh.shape["model"]) if mesh is not None else (1, 1)
+    if m <= 1:
+        return 0
+    if resolve_gather_mode(cfg, mesh) == "params3d":
+        sh_k = (cfg.sh_degree + 1) ** 2
+        floats = n_total * (11 + 3 * sh_k)
+    else:
+        b_local = max(cfg.batch_size // d, 1)
+        floats = b_local * n_total * P.PACKED_DIM
+    return int(floats) * 4
+
+
+def shard_balance(state: GSTrainState, mesh: Mesh | None = None, *, opacity_thresh: float = 0.005) -> dict:
+    """Per-model-shard load statistics, the trigger signal for dynamic
+    rebalancing (Grendel's result: static Gaussian splits skew).
+
+    Each rank reduces its own shard on its device, and the per-shard scalars
+    cross the model axis in one small all-gather (a collective: every rank
+    of the mesh calls it). ``alive`` counts Gaussians whose opacity clears
+    ``opacity_thresh``, ``visible`` slots that have ever projected on screen
+    (``max_radii > 0``), and ``projected`` the accumulated per-view
+    visibility tallies. ``imbalance`` is max/mean of the per-shard alive
+    counts (1.0 = balanced; 0.0 only for an all-dead model)."""
     logit_thresh = float(np.log(opacity_thresh / (1.0 - opacity_thresh)))
-    capacity = [int(state.params.opacity_logit.shape[0])]
-    alive = [int((state.params.opacity_logit > logit_thresh).sum())]
-    visible = [int((state.max_radii > 0.0).sum())]
-    projected = [float(state.vis_count.sum())]
+    mine = torch.stack([
+        torch.full((), state.params.opacity_logit.shape[0], dtype=torch.float64, device=state.step.device),
+        (state.params.opacity_logit > logit_thresh).sum().to(torch.float64),
+        (state.max_radii > 0.0).sum().to(torch.float64),
+        state.vis_count.sum().to(torch.float64),  # the float32 sum, exactly
+    ])
+    per_shard = (gather_rows(mine[None], mesh.model) if mesh is not None else mine[None]).cpu().tolist()
+    capacity = [int(r[0]) for r in per_shard]
+    alive = [int(r[1]) for r in per_shard]
+    visible = [int(r[2]) for r in per_shard]
+    projected = [float(r[3]) for r in per_shard]
     mean_alive = sum(alive) / len(alive)
     imbalance = (max(alive) / mean_alive) if mean_alive > 0 else 0.0
     return {
@@ -149,31 +240,82 @@ class _NoTF32Conv:
         torch.backends.cudnn.allow_tf32 = self._prev
 
 
-def make_train_step(cfg: GSConfig):
-    """Build the one-device train step.
+def make_train_step(cfg: GSConfig, mesh: Mesh | None = None):
+    """Build the train step, on one device (``mesh=None``) or on this rank
+    of a (data, model) mesh.
 
     Returned fn: (state, cams: Camera batched (B, ...) on the host, gt:
     (B, H, W, 3) on the params' device) -> (state, {"loss": () tensor}).
+    On a mesh, ``state`` is this rank's model shard (:func:`shard_state`)
+    and ``cams``/``gt`` the global batch: data rank i takes views
+    [i*B/d, (i+1)*B/d), and with pixel strips (``cfg.pixel_parallel`` and
+    model > 1) model rank j renders and scores rows [j*H/m, (j+1)*H/m) of
+    them. The gradients, ``grad2d_accum``, ``vis_count`` and ``max_radii``
+    equal the one-device step's, and the loss is the same on every rank.
     Nothing in it waits for the device: the caller reads the loss when it
     wants it."""
-    if cfg.gather_mode not in ("auto", "projected"):
-        raise NotImplementedError(f"gather_mode {cfg.gather_mode!r}: one device gathers nothing; "
-                                  "sharding over ranks is not ported yet")
-    bg = _DeviceBg(cfg.bg)
+    d = mesh.data.size if mesh is not None else 1
+    m = mesh.model.size if mesh is not None else 1
+    strip = cfg.pixel_parallel and m > 1
+    if strip and cfg.img_h % (m * cfg.tile_h):
+        raise ValueError(f"img_h {cfg.img_h} must split into {m} model-axis strips of whole {cfg.tile_h}-row tiles")
+    if cfg.batch_size % d:
+        raise ValueError(f"global batch {cfg.batch_size} must divide over {d} data ranks")
+    strip_h = cfg.img_h // m if strip else cfg.img_h
+    b_local = cfg.batch_size // d
+    i_data = mesh.data.index if mesh is not None else 0
+    j_model = mesh.model.index if mesh is not None else 0
+    # one device gathers nothing: every mode is the projected step there
+    params3d = mesh is not None and resolve_gather_mode(cfg, mesh) == "params3d"
+    bg = _OnDevice(cfg.bg)
     scale = grendel_lr_scale(cfg.batch_size) if cfg.grendel_sqrt_lr_scaling else 1.0
+    if mesh is None:
+        def gather(x):
+            return x
+        reduce_axes = ()
+    else:
+        def gather(x):
+            return all_gather(x, mesh.model)
+        reduce_axes = (mesh.data, mesh.model)
+    strip_axis = mesh.model if strip else None
+    # strip j renders its rows with the splats moved up by its first row
+    my_shift = _OnDevice([float(j_model * strip_h) if k == P.MY else 0.0 for k in range(P.PACKED_DIM)])
 
     def loss_fn(p: G.GaussianModel, probe: torch.Tensor, cams: P.Camera, gt: torch.Tensor):
+        n_local = p.n
+        if params3d:
+            # the 3D state crosses the model axis once per step (14 + 3K
+            # floats per Gaussian); every rank projects all N per view
+            flat3d = torch.cat([p.means, p.log_scales, p.quats, p.opacity_logit[:, None],
+                                p.sh.reshape(n_local, -1)], dim=1)
+            flat_all = gather(flat3d)
+            p_full = G.GaussianModel(
+                means=flat_all[:, 0:3].contiguous(),
+                log_scales=flat_all[:, 3:6].contiguous(),
+                quats=flat_all[:, 6:10].contiguous(),
+                opacity_logit=flat_all[:, 10].contiguous(),
+                sh=flat_all[:, 11:].reshape(flat_all.shape[0], p.sh.shape[1], 3).contiguous(),
+            )
         imgs, radii = [], []
+        # one view at a time, each view's splats gathered alone: the step
+        # never holds a (B, N, 11) copy of the batch's splats
         for i in range(gt.shape[0]):
-            packed = P.project(p, _view(cams, i))
-            # the zero probe on the projected means: its gradient is the
-            # view-space mean2d gradient that densification reads
-            packed = packed + F.pad(probe[i], (0, P.PACKED_DIM - 2))
-            radii.append(packed[:, P.RAD].detach())
-            pk_sorted, _ = P.sort_by_depth(packed)
+            if params3d:
+                # the zero probe on the projected means: its gradient is
+                # the view-space mean2d gradient that densification reads
+                gathered = P.project(p_full, _view(cams, i)) + F.pad(probe[i], (0, P.PACKED_DIM - 2))
+                radii.append(gathered[j_model * n_local:(j_model + 1) * n_local, P.RAD].detach())
+            else:
+                # Grendel: project the own shard, gather the 11-float splats
+                packed = P.project(p, _view(cams, i)) + F.pad(probe[i], (0, P.PACKED_DIM - 2))
+                radii.append(packed[:, P.RAD].detach())
+                gathered = gather(packed)                                                # (N, 11)
+            if strip:
+                gathered = gathered - my_shift.on(gathered.device)
+            pk_sorted, _ = P.sort_by_depth(gathered)
             img, _ = R.render_packed(
                 pk_sorted,
-                img_h=cfg.img_h,
+                img_h=strip_h,
                 img_w=cfg.img_w,
                 tile_h=cfg.tile_h,
                 tile_w=cfg.tile_w,
@@ -182,23 +324,42 @@ def make_train_step(cfg: GSConfig):
                 binning=cfg.binning,
             )
             imgs.append(img)
-        loss = distributed_gs_loss(torch.stack(imgs), gt, lam=cfg.lambda_dssim)
+        loss = distributed_gs_loss(torch.stack(imgs), gt, lam=cfg.lambda_dssim, strip_axis=strip_axis,
+                                   reduce_axes=reduce_axes)
         return loss, torch.stack(radii)
 
     def step(state: GSTrainState, cams: P.Camera, gt: torch.Tensor):
+        if mesh is not None:
+            views = slice(i_data * b_local, (i_data + 1) * b_local)
+            cams = P.Camera(*[x[views] for x in cams])
+            gt = gt[views]
+            if strip:
+                gt = gt[:, j_model * strip_h:(j_model + 1) * strip_h]
         params = state.params
         leaves = [x.detach().requires_grad_() for x in params]
-        probe = torch.zeros((gt.shape[0], params.n, 2), dtype=torch.float32, device=params.means.device,
-                            requires_grad=True)
+        probe = torch.zeros((gt.shape[0], params.n * (m if params3d else 1), 2), dtype=torch.float32,
+                            device=params.means.device, requires_grad=True)
         with _NoTF32Conv():
             loss, radii = loss_fn(G.GaussianModel(*leaves), probe, cams, gt)
             *grads, probe_grad = torch.autograd.grad(loss, [*leaves, probe])
 
         grads = G.GaussianModel(*grads)
+        if params3d and mesh is not None:
+            # every strip's share of the view-space gradient of the own shard
+            probe_grad = reduce_scatter_rows(probe_grad, mesh.model, dim=1)
         # view-space positional gradient stats for densification
         g2d = torch.sqrt(torch.sum(probe_grad * probe_grad, dim=-1) + 1e-20).sum(dim=0)
         vis = (radii > 0.0).to(torch.float32).sum(dim=0)
         maxr = radii.amax(dim=0)
+        if mesh is not None:
+            # the paper's fused all-reduce: ONE collective over packed grads
+            flat, unpack = pack_pytree(grads)
+            dist.all_reduce(flat, group=mesh.data.group)
+            grads = unpack(flat)
+            stats = torch.stack([g2d, vis])
+            dist.all_reduce(stats, group=mesh.data.group)
+            g2d, vis = stats[0], stats[1]
+            dist.all_reduce(maxr, op=dist.ReduceOp.MAX, group=mesh.data.group)
 
         # Adam with per-field LRs (Grendel sqrt-batch scaling)
         lr_means = expon_lr(state.step, lr_init=cfg.lr_means_init, lr_final=cfg.lr_means_final,
@@ -224,12 +385,13 @@ def make_train_step(cfg: GSConfig):
     return step
 
 
-class _DeviceBg:
-    """The config's background color as a tensor, made once per device, so a
-    render never pays a host->device copy (which synchronizes the stream)."""
+class _OnDevice:
+    """A constant vector (the config's background color, a strip's splat
+    shift) as a tensor, made once per device, so a render never pays a
+    host->device copy (which synchronizes the stream)."""
 
-    def __init__(self, bg):
-        self._bg = tuple(float(c) for c in bg)
+    def __init__(self, values):
+        self._bg = tuple(float(c) for c in values)
         self._on: dict[torch.device, torch.Tensor] = {}
 
     def on(self, device: torch.device) -> torch.Tensor:
@@ -249,12 +411,18 @@ def _view(cams: P.Camera, i: int) -> P.Camera:
     return P.Camera(*[x[i] for x in cams])
 
 
-def make_eval_render(cfg: GSConfig):
-    """Eval render of one view: fn(params, cam) -> (image (H,W,3), T (H,W))."""
-    bg = _DeviceBg(cfg.bg)
+def make_eval_render(cfg: GSConfig, mesh: Mesh | None = None):
+    """Eval render of one view: fn(params, cam) -> (image (H,W,3), T (H,W)).
+    On a mesh, ``params`` is this rank's model shard: each rank projects its
+    shard, the splats cross the model axis in one all-gather, and every
+    rank renders the full frame."""
+    bg = _OnDevice(cfg.bg)
 
     def fn(params: G.GaussianModel, cam: P.Camera):
-        pk_sorted = _project_sorted(params, cam)
+        packed = P.project(params, cam)
+        if mesh is not None:
+            packed = gather_rows(packed, mesh.model)
+        pk_sorted, _ = P.sort_by_depth(packed)
         return R.render_packed(
             pk_sorted,
             img_h=cfg.img_h,
@@ -284,7 +452,7 @@ def make_tile_row_render(cfg: GSConfig, *, row: int):
     on this: a cache that already holds most of a frame's tiles re-renders
     only the missing rows.
     """
-    bg = _DeviceBg(cfg.bg)
+    bg = _OnDevice(cfg.bg)
     row = int(row)
     row_offset = row * cfg.tile_h
 

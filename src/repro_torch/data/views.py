@@ -21,7 +21,8 @@ from repro_torch.volume.raymarch import render_isosurface
 
 class ViewDataset:
     """Orbit cameras (host tensors) and their GT images. Images are rendered
-    on ``device`` and handed out on it; the numpy copy is ``self.gt``."""
+    on ``device`` (default: the card) and handed out on it; the numpy copy
+    is ``self.gt``."""
 
     def __init__(
         self,
@@ -34,7 +35,7 @@ class ViewDataset:
         cache_dir: str | None = None,
         n_steps_raymarch: int = 128,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ):
         self.img_h, self.img_w = img_h, img_w
         self.n_views = n_views

@@ -19,7 +19,7 @@ from repro_torch.models.config import ModelConfig
 
 
 # ------------------------------------------------------------- cache init
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None, device="cpu") -> dict:
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None, device="cuda") -> dict:
     """Zeroed KV caches in the JAX package's layout: stacked under
     ``units/slot<i>`` with a leading layer dim, or listed under ``flat``,
     and ``rem``."""

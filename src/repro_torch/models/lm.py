@@ -111,7 +111,7 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters from ``seed``, drawn on ``device``, in the JAX
     package's layout, distributions and dtype (the values differ: the two
     packages' generators differ)."""

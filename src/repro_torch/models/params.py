@@ -38,7 +38,7 @@ def tree_leaves(tree) -> list:
     return leaves
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """The port's parameter tree for a JAX parameter tree of numpy leaves."""
     return tree_map(lambda x: _leaf(x, device), tree)
 

@@ -1,7 +1,9 @@
 """PyTorch port, on the card: each hand-written CUDA kernel against its plain
 PyTorch version, the serving path through the forward kernels, a train
 step through the three splatting kernels against the same step on the CPU,
-and the LM prefill step through the attention kernel against the CPU.
+the sharded train step on a world-1 NCCL mesh bitwise against the
+one-device step (and across cards where there are two or more), and the LM
+prefill step through the attention kernel against the CPU.
 
 Every test here needs a CUDA device and skips without one (the decision is
 made inside the ``cuda_device`` fixture, so every xdist worker collects the
@@ -26,6 +28,7 @@ from repro_torch.core.train import (
     make_batched_eval_render,
     make_tile_row_render,
     make_train_step,
+    shard_state,
     state_from_numpy,
     state_to_numpy,
 )
@@ -37,9 +40,11 @@ from repro_torch.kernels.gsproject import ops as gp_ops
 from repro_torch.kernels.gsproject.ref import project_ref
 from repro_torch.kernels.tile_raster import ops as tr_ops
 from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref, composited_counts, contrib_counts
+from repro_torch.launch.mesh import init_ranks, make_gs_mesh
 from repro_torch.models import api, lm
 from repro_torch.models.params import tree_to
 from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
+from repro_torch.utils.tree import tree_leaves
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.gpu
@@ -447,6 +452,79 @@ def test_train_step_after_densify_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(st_k[2], st_c[2])
 
 
+
+@pytest.fixture(scope="module")
+def nccl_world_one(tmp_path_factory):
+    """A world-1 NCCL process group in this process (through a file store)
+    and the (1, 1) mesh over it; destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs only on the card")
+    dev = torch.device("cuda", 0)
+    init_ranks(dev, init_method=f"file://{tmp_path_factory.mktemp('nccl')}/store", rank=0, world_size=1,
+               timeout_s=300)
+    yield make_gs_mesh(1, 1, device=dev)
+    torch.distributed.destroy_process_group()
+
+
+def _ranks_scene():
+    """A small training scene as numpy: model, two cameras and their images."""
+    host = _scene(4096, seed=6, scale=0.03)
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = np.random.default_rng(6).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    return host, cams, gt
+
+
+@pytest.mark.parametrize("mode", ["projected", "params3d"])
+def test_sharded_step_at_world_one_over_nccl_is_bitwise_the_one_device_step(nccl_world_one, mode):
+    """Three steps of the sharded step on a world-1 NCCL mesh (the gathers,
+    reduce-scatters and all-reduces are real NCCL calls over groups of one;
+    one model rank renders no strips) against ``make_train_step(cfg)`` with no
+    mesh, from the same state: losses, parameters, Adam moments and the
+    densify statistics bit for bit."""
+    mesh = nccl_world_one
+    host, cams, gt = _ranks_scene()
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, gather_mode=mode, bg=(0.1, 0.2, 0.3))
+    gt_d = torch.tensor(gt, device=mesh.device)
+    one, st_one = make_train_step(cfg), init_state(G.from_numpy(host, mesh.device))
+    step, st = make_train_step(cfg, mesh), shard_state(init_state(G.from_numpy(host, mesh.device)), mesh)
+    for _ in range(3):
+        st_one, m_one = one(st_one, cams, gt_d)
+        st, m = step(st, cams, gt_d)
+        assert float(m["loss"]) == float(m_one["loss"])
+    for a, b in zip(tree_leaves(st), tree_leaves(st_one)):
+        assert torch.equal(a, b)
+
+
+def test_sharded_step_across_cards_over_nccl_matches_world_one(cuda_device, tmp_path):
+    """(1, n) over NCCL with one rank per card, three projected steps from
+    the same state: the losses within rtol 1e-5 of the one-device step's
+    (the pixel strips sum the loss in another order)."""
+    import torch_ranks as TR
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices for ranks across cards, found {n}")
+    n = 4 if n >= 4 else 2  # 64 px in 16-px tiles splits into 2 or 4 strips
+    host, cams, gt = _ranks_scene()
+    cfg = dict(img_h=64, img_w=64, k_per_tile=64, batch_size=2, gather_mode="projected", bg=(0.1, 0.2, 0.3))
+    inputs = {f"a.state.params.{f}": getattr(host, f) for f in host._fields}
+    z = {k: np.zeros_like(v) for k, v in inputs.items()}
+    inputs.update({k.replace("params", "adam.m"): v for k, v in z.items()})
+    inputs.update({k.replace("params", "adam.v"): v for k, v in z.items()})
+    inputs.update({"a.state.adam.count": np.int32(0), "a.state.step": np.int32(0), "a.gt": gt,
+                   **{f"a.state.{k}": np.zeros(host.means.shape[0], np.float32)
+                      for k in ("grad2d_accum", "vis_count", "max_radii")},
+                   **{f"a.cams.{f}": np.asarray(x) for f, x in zip(cams._fields, cams)}})
+    ranks = TR.spawn([dict(kind="train", name="r", mesh=[1, n], cfg=cfg, inputs="a.", steps=3)], n, inputs,
+                     tmp_path, device="cuda")
+    one, st = make_train_step(GSConfig(**cfg)), init_state(G.from_numpy(host, cuda_device))
+    want = []
+    for _ in range(3):
+        st, m = one(st, cams, torch.tensor(gt, device=cuda_device))
+        want.append(float(m["loss"]))
+    for r in ranks:
+        np.testing.assert_allclose(r["r/losses"], want, rtol=1e-5)
+
 # the JAX flash-attention kernel test's sweep, (B, S, Skv, H, Hkv, hd, causal,
 # window), with q_offset = Skv - S; then Skv 9000, where the JAX wrapper
 # falls back to its oracle and the CUDA kernel still runs; a Gemma3-style
@@ -551,7 +629,7 @@ def test_smoke_prefill_on_card_matches_cpu(cuda_device, arch):
     attention kernel on the card against the plain versions on the CPU, at
     the LM parity tests' tolerance; one kernel launch per layer."""
     cfg = get_arch(arch).smoke_config()
-    params = lm.init_params(cfg, seed=0)
+    params = lm.init_params(cfg, seed=0, device="cpu")
     toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 48)))
     step = api.make_prefill_step(cfg)
     want = step(params, {"tokens": toks})

@@ -43,7 +43,7 @@ def _cfgs(arch):
 
 def _params(jcfg, seed=0):
     jp = J_lm.init_params(jcfg, jax.random.key(seed))
-    return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
 
 
 def _shapes(tree):
@@ -72,18 +72,18 @@ def test_model_configs_equal_jax_package(arch):
 def test_init_params_and_cache_layout_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp = J_lm.init_params(jcfg, jax.random.key(0))
-    tp = lm.init_params(tcfg, seed=0)
+    tp = lm.init_params(tcfg, seed=0, device="cpu")
     assert _shapes(tp) == _shapes(jax.tree_util.tree_map(np.asarray, jp))
     assert ("units" in tp) == (arch == "qwen3-0.6b")
     jc = J_api.init_cache(jcfg, 2, 40)
-    tc = api.init_cache(tcfg, 2, 40)
+    tc = api.init_cache(tcfg, 2, 40, device="cpu")
     assert _shapes(tc) == _shapes(jax.tree_util.tree_map(np.asarray, jc))
 
 
 def test_params_from_jax_keeps_keys_and_bfloat16_bits():
     jcfg = dataclasses.replace(j_get_arch("qwen3-0.6b").smoke_config(), dtype="bfloat16")
     jp = J_lm.init_params(jcfg, jax.random.key(1))
-    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     j_leaves = jax.tree_util.tree_leaves_with_path(jp)
     t_flat = {}
 
@@ -135,7 +135,7 @@ def _jax_serve(jcfg, jp, prompt, gen, cache_len):
 
 def _port_serve(tcfg, tp, prompt, gen, cache_len):
     serve = api.make_serve_step(tcfg)
-    cache = api.init_cache(tcfg, prompt.shape[0], cache_len)
+    cache = api.init_cache(tcfg, prompt.shape[0], cache_len, device="cpu")
     logits_all, ids = [], []
     toks = None
     for t in range(prompt.shape[1] + gen - 1):
@@ -171,7 +171,7 @@ def test_prefill_matches_own_serve_steps(arch):
     through the same prompt (plain decode attention) give the same
     last-position logits."""
     _, tcfg = _cfgs(arch)
-    tp = lm.init_params(tcfg, seed=3)
+    tp = lm.init_params(tcfg, seed=3, device="cpu")
     prompt = _tokens(2, 40, tcfg.vocab, seed=4)
     pre = np_(api.make_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(prompt).long()}))
     logits, _ = _port_serve(tcfg, tp, prompt, 1, 40)
@@ -213,4 +213,4 @@ def test_get_arch_aliases_and_unported_archs():
     for other in (dataclasses.replace(qwen, arch_type="zamba"), dataclasses.replace(qwen, n_experts=4, top_k=2),
                   dataclasses.replace(qwen, layer_pattern="GM")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            lm.init_params(other)
+            lm.init_params(other, device="cpu")
