@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: build the kernels, hold each against
 its plain PyTorch version on the card, time both, serve a 4M-Gaussian
-Kingsnake scene at 512 px through the port's ``RenderServer``, train the
-same scene for a few steps through ``GSTrainer``, on one device and on a
-mesh of ranks over NCCL, then prefill and decode
+Kingsnake scene at 512 px through the port's ``RenderServer``, on one
+device and on a mesh of ranks over NCCL, train the same scene for a few
+steps through ``GSTrainer``, on one device and on a mesh of ranks, then
+prefill and decode
 the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
-    python3 chip_smoke.py --ranks-only    # phase 5b alone, e.g. on several cards
+    python3 chip_smoke.py --ranks-only    # phases 4b and 5b alone, e.g. on several cards
 
 Run from the root of a checkout on a machine with one NVIDIA card (an H100
 is what the numbers in PERF.md were taken on). It builds the kernels from
@@ -33,9 +34,21 @@ Phases, in order (any failure exits non-zero):
      rasterizer, per-tile load (valid entries and alpha evaluations: max,
      p99, p50, mean) and each kernel's time on the densest tile alone;
   4. serving: a few orbit clients through the port's RenderServer, with
-     the launch counters zeroed just before and read just after, a strip
-     bitwise equal to its full-frame rows, and a small render checked
-     against the port's CPU path;
+     the launch counters zeroed just before and read just after, then a
+     localized update and two revisited poses (strips); the device busy
+     share of one served micro-batch (``profile_step``); a strip bitwise
+     equal to its full-frame rows, and a small render checked against the
+     port's CPU path;
+  4b. serve ranks: this process's world-1 NCCL group (made here, shared
+     with phase 5b) drives ``RenderServer(mesh=(1, 1))`` over phase 4's
+     host model with phase 4's requests, the counters zeroed just before
+     and read just after: every frame bitwise equal to phase 4's; frames/s,
+     p50 and p99 beside phase 4's, the control plane's descriptor cost per
+     dispatch and the level exchange's time, the busy share of one served
+     micro-batch; with two or more cards, the same requests on (2, 1),
+     (4, 1), (1, 2) and (1, 4) over NCCL, one rank per card, frames bitwise
+     equal to world 1, frames/s, p50 and p99 on the lead, peak memory on
+     the fullest rank;
   5. training: 8 ray-marched orbit views, ``GSTrainer.fit`` at batch 4 with
      one densify round and ``evaluate``, with the launch counters zeroed
      just before and read just after (4 per step for each kernel, plus one
@@ -43,7 +56,7 @@ Phases, in order (any failure exits non-zero):
      breakdown and peak memory; a small train step, and a densify round
      that clones, splits and prunes followed by one more step, each checked
      against the port's CPU path;
-  5b. ranks: a world-1 NCCL process group drives ``GSTrainer(mesh=...)``
+  5b. ranks: the world-1 NCCL process group drives ``GSTrainer(mesh=...)``
      at the training configuration (the splats' all-gather and its
      reduce-scatter, the loss sums' all-reduce and the fused gradient
      all-reduce are real NCCL calls over groups of one; with one model
@@ -74,13 +87,15 @@ Phases, in order (any failure exits non-zero):
   6. the result, printed last (after phase 7): the kernels' JSON line (``launches`` from each
      kernel's main path: training for the splatting kernels, the LM prefill
      for attention; ``launches_by_path`` with every path's own counts,
-     ``ranks`` the sharded fits of phase 5b) and
+     ``serve_ranks`` the mesh server of phase 4b, ``ranks`` the sharded fits
+     of phase 5b) and
      the final status line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -622,6 +637,30 @@ def _rank_worker(rank: int, n: int, mode: str, steps: int, res: int, n_views: in
     torch.distributed.destroy_process_group()
 
 
+def world_one_group(dev) -> float:
+    """This process's world-1 NCCL group (file store under ``RANKS_DIR``),
+    made once: the serve-ranks and ranks phases share it. Returns the ms it
+    took to come up, or 0.0 if it was up already."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, make_gs_mesh
+
+    if dist.is_initialized():
+        return 0.0
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
+    for f in RANKS_DIR.glob("store_*"):
+        f.unlink()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_1", rank=0, world_size=1, timeout_s=300)
+    make_gs_mesh(1, 1, device=dev).barrier()
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    log(f"ranks: NCCL {nccl}, world-1 group and (1, 1) mesh up in {init_ms:.1f} ms (backend {dist.get_backend()})")
+    return init_ms
+
+
 def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
     """Training across ranks at the full configuration. At world size 1 a
     NCCL group drives ``GSTrainer(mesh=...)`` (the gathers, reduce-scatters
@@ -633,27 +672,15 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
     at rtol 1e-5."""
     import types
 
-    import torch.distributed as dist
-
     from repro_torch.configs.gs_datasets import paper_gs_config
     from repro_torch.core.train import all_gather_bytes_per_step
-    from repro_torch.launch.mesh import init_ranks, make_gs_mesh
+    from repro_torch.launch.mesh import make_gs_mesh
     from repro_torch.launch.train import GSTrainer
     from repro_torch.utils.tree import tree_leaves
 
     res = data.img_h
-    RANKS_DIR.mkdir(parents=True, exist_ok=True)
-    for f in RANKS_DIR.glob("store_*"):
-        f.unlink()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_1", rank=0, world_size=1, timeout_s=300)
+    world_one_group(dev)
     mesh = make_gs_mesh(1, 1, device=dev)
-    mesh.barrier()
-    torch.cuda.synchronize()
-    init_ms = (time.perf_counter() - t0) * 1e3
-    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
-    log(f"ranks: NCCL {nccl}, world-1 group and (1, 1) mesh up in {init_ms:.1f} ms (backend {dist.get_backend()})")
 
     def fit(mode: str, with_mesh: bool):
         cfg = paper_gs_config(res, gather_mode=mode, max_steps=RANKS_STEPS)
@@ -695,7 +722,6 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
         if launches[:3] != [4 * RANKS_STEPS] * 3 or launches[3]:
             raise SystemExit(f"ranks {mode}: launches {launches}, want {4 * RANKS_STEPS} of each splatting kernel")
         del ref, tr
-    dist.destroy_process_group()
     out["one_device_step_ms"] = one_ms
 
     cfg4 = paper_gs_config(res)
@@ -752,6 +778,226 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
     return out
 
 
+SERVE_MESHES = ((2, 1), (4, 1), (1, 2), (1, 4))  # across cards: data-parallel, then model-sharded
+SERVE_LEVELS = dict(n_levels=3, keep_ratio=0.5, max_batch=4, pipeline_depth=2)
+
+
+def serve_load(server, cfg, n_clients: int, n_requests: int, counters: dict) -> dict:
+    """Phase 4's requests through ``server``, the launch counters zeroed just
+    before and read just after: ``n_clients`` orbit clients (three LOD
+    rings) x ``n_requests``, then a localized update (two tile rows of the
+    timestep dropped) and two served poses revisited, which render only
+    those rows (the strip path). Returns the report, every frame in
+    completion order, the revisits' frames and the launches."""
+    from repro_torch.serve_gs import make_clients, run_load
+    from repro_torch.volume.cameras import camera_slice, orbit_cameras
+
+    cams = orbit_cameras(12, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.0)
+    row = (cfg.img_h // cfg.tile_h) // 2 + 1
+    clients = make_clients(n_clients, n_views=12, img_h=cfg.img_h, img_w=cfg.img_w, radius_spread=1.0)
+    for c in counters.values():
+        c.n = 0
+    run_load(server, clients, requests_per_client=n_requests)
+    server.invalidate(0, rows={row, row + 1})
+    revisit = [server.submit(camera_slice(cams, i)) for i in range(2)]
+    frames_revisit = [f.result() for f in revisit]
+    server.run()
+    launches = {k: c.n for k, c in counters.items()}
+    return {"report": server.report(), "frames": list(server.frames.values()), "revisit": frames_revisit,
+            "launches": launches}
+
+
+def serve_profile(server, cfg, label: str) -> None:
+    """``profile_step`` over one served micro-batch: four level-0 poses no
+    server has seen (the orbit's radius steps by 1e-3 per call), submitted
+    and run until their frames are on the host; its wall is the median of
+    three unprofiled calls, whose host time is split into the submits, the
+    dispatch (the render's enqueue), the wait for the device and the rest
+    of ``run`` (retiring: frames into the tile cache, futures)."""
+    from repro_torch.volume.cameras import camera_slice, orbit_cameras
+
+    calls = itertools.count()
+
+    def one():
+        cams = orbit_cameras(4, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.05 + 1e-3 * next(calls))
+        t0 = time.perf_counter()
+        futs = [server.submit(camera_slice(cams, i)) for i in range(4)]
+        t1 = time.perf_counter()
+        server.run()
+        for f in futs:
+            f.result()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    parts = []
+    for _ in range(3):
+        p0 = server.report()["pipeline"]
+        sub_ms, run_ms = one()
+        p1 = server.report()["pipeline"]
+        disp_ms, block_ms = ((p1[k] - p0[k]) * 1e3 for k in ("dispatch_s", "block_s"))
+        parts.append((sub_ms + run_ms, sub_ms, run_ms, disp_ms, block_ms, run_ms - disp_ms - block_ms))
+    wall, sub_ms, run_ms, disp_ms, block_ms, rest_ms = np.median(np.asarray(parts), axis=0)
+    log(f"{label} host breakdown (median of 3 unprofiled calls): wall {wall:.3f} ms = submit x4 {sub_ms:.3f} ms + "
+        f"run {run_ms:.3f} ms (dispatch {disp_ms:.3f}, wait for the device {block_ms:.3f}, the rest {rest_ms:.3f})")
+    profile_step(one, float(wall), label=label)
+
+
+def serve_summary(label: str, card: str, run: dict, extra: str = "") -> str:
+    rep = run["report"]
+    lat = rep["latency_ms"]
+    mesh = rep["mesh"]
+    control = ("no control plane" if mesh is None else
+               f"descriptor {mesh['control_us_per_send']} us per dispatch on the lead's host over "
+               f"{mesh['control_sends']} dispatches, levels out in {mesh['levels_s'] * 1e3:.1f} ms")
+    return (f"{label} ({card}): {rep['completed']} requests, {rep['frames_per_s']} frames/s, p50 {lat['p50']} ms, "
+            f"p99 {lat['p99']} ms, render calls {rep['render']['calls']}, partial hits {rep['tiles']['partial_hits']}, "
+            f"wall {rep['wall_s']} s, dispatch {rep['pipeline']['dispatch_s']} s, block {rep['pipeline']['block_s']} s; "
+            f"{control}{extra}")
+
+
+def _serve_rank_worker(rank: int, shape: tuple, res: int, n_clients: int, n_requests: int, device_type: str,
+                       timeout_s: float) -> None:
+    """One rank of a serving mesh across cards: NCCL on cuda:rank (gloo on
+    the CPU when the phase is rehearsed there). The lead (rank 0) serves
+    phase 4's requests from the host model in ``RANKS_DIR`` and writes its
+    frames and report; the others serve until it closes. Every rank writes
+    its peak device memory."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.core import gaussians as G
+    from repro_torch.kernels.gsproject import ops as gp_ops
+    from repro_torch.kernels.tile_raster import ops as tr_ops
+    from repro_torch.launch.mesh import init_ranks, make_gs_mesh
+    from repro_torch.obs import Obs
+    from repro_torch.serve_gs import RenderServer
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    tag = f"{shape[0]}x{shape[1]}"
+    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_serve_{tag}", rank=rank, world_size=shape[0] * shape[1],
+               timeout_s=timeout_s)
+    mesh = make_gs_mesh(*shape, device=dev)
+    cfg = paper_gs_config(res)
+    host = None
+    if rank == 0:
+        arrays = np.load(RANKS_DIR / "host.npz")
+        host = G.GaussianModel(*[arrays[f] for f in G.GaussianModel._fields])
+    base = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    server = RenderServer(host, cfg, mesh=mesh, obs=Obs(), frames_capacity=4 * (n_clients * n_requests + 2),
+                          **SERVE_LEVELS)
+    with server:
+        if server.is_lead:
+            server.warmup(buckets=server.batcher.buckets[:1])
+            run = serve_load(server, cfg, n_clients, n_requests,
+                             {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count})
+            np.save(RANKS_DIR / f"serve_frames_{tag}.npy", np.stack(run["frames"] + run["revisit"]))
+            (RANKS_DIR / f"serve_{tag}.json").write_text(json.dumps(
+                {"report": run["report"], "launches": run["launches"], "buckets": list(server.batcher.buckets)}))
+        else:
+            server.serve_follower()
+    peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else 0
+    (RANKS_DIR / f"serve_peak_{tag}_{rank}.json").write_text(json.dumps({"peak_bytes": peak}))
+    torch.distributed.destroy_process_group()
+
+
+def serve_ranks_phase(dev, card: str, host, cfg, args, counters: dict, one_device: dict | None) -> dict:
+    """Serving across ranks at the full configuration. The world-1 NCCL
+    group of this process drives ``RenderServer(mesh=(1, 1))`` over phase
+    4's host model with phase 4's requests: every frame bitwise equal to
+    phase 4's one-device frames (``one_device``; with None, as in
+    ``--ranks-only``, the one-device server runs first here), or the phase
+    fails. With two or more cards, the same requests on each mesh of
+    ``SERVE_MESHES`` that fits, one rank per card over NCCL, frames bitwise
+    equal to world 1, frames/s and latency on the lead, each rank's peak
+    memory above its start. The one-device server serves the same requests
+    once more after the world-1 mesh (one device, mesh, one device), since
+    serving is host-bound and its times drift within a call."""
+    from repro_torch.launch.mesh import make_gs_mesh
+    from repro_torch.obs import Obs
+    from repro_torch.serve_gs import RenderServer
+
+    def one_device_run():
+        with RenderServer(host, cfg, device=dev, obs=Obs(), **kw) as srv:
+            srv.warmup(buckets=(1,))
+            return serve_load(srv, cfg, args.clients, args.requests, counters)
+
+    kw = dict(frames_capacity=4 * (args.clients * args.requests + 2), **SERVE_LEVELS)
+    if one_device is None:
+        one_device = one_device_run()
+        log(serve_summary("serve, one device", card, one_device))
+    world_one_group(dev)
+    mesh = make_gs_mesh(1, 1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    server = RenderServer(host, cfg, mesh=mesh, obs=Obs(), **kw)
+    build_s = time.perf_counter() - t0
+    with server:
+        server.warmup(buckets=(1,))
+        run = serve_load(server, cfg, args.clients, args.requests, counters)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        want = one_device["frames"] + one_device["revisit"]
+        got = run["frames"] + run["revisit"]
+        same = len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+        log(serve_summary("serve ranks, world-1 NCCL mesh", card, run,
+                          f"; built in {build_s:.2f} s; peak memory above its start {peak} B; launches "
+                          f"{run['launches']}; {len(got)} frames bitwise equal to the one-device server's: {same}"))
+        log(serve_summary("serve ranks, the one-device server before the mesh", card, one_device))
+        if not same:
+            raise SystemExit("serve ranks: the world-1 mesh server's frames are not bitwise the one-device server's")
+        launches = run["launches"]
+        if not launches["gsproject"] or not launches["tile_raster_fwd"] or any(
+                v for k, v in launches.items() if k not in ("gsproject", "tile_raster_fwd")):
+            raise SystemExit(f"serve ranks: launches {launches}: want both forward kernels, no backward, no attention")
+        serve_profile(server, cfg, "serve ranks micro-batch (world-1 NCCL mesh)")
+    del server
+    after = one_device_run()
+    log(serve_summary("serve ranks, the one-device server after the mesh", card, after))
+    out = {"launches": launches, "world1": {k: run["report"][k] for k in ("frames_per_s", "latency_ms", "mesh")},
+           "one_device": [{k: r["report"][k] for k in ("frames_per_s", "latency_ms")} for r in (one_device, after)],
+           "world1_peak_bytes": peak, "multi_card": {}}
+
+    n_cards = torch.cuda.device_count()
+    fits = [s for s in SERVE_MESHES if s[0] * s[1] <= n_cards]
+    if not fits:
+        log(f"serve ranks: {n_cards} card on this machine: served at world size 1 only; meshes across cards not run")
+        return out
+    np.savez(RANKS_DIR / "host.npz", **{f: getattr(host, f) for f in host._fields})
+    for shape in fits:
+        tag = f"{shape[0]}x{shape[1]}"
+        n = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _serve_rank_worker, args=(shape, cfg.img_h, args.clients, args.requests, dev.type, 300.0), nprocs=n,
+            join=False, start_method="spawn")
+        deadline = time.perf_counter() + 600
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise SystemExit(f"serve ranks: the {shape} mesh across cards did not finish in 600 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        res = json.loads((RANKS_DIR / f"serve_{tag}.json").read_text())
+        frames = np.load(RANKS_DIR / f"serve_frames_{tag}.npy")
+        same = frames.shape[0] == len(got) and all(np.array_equal(a, b) for a, b in zip(frames, got))
+        peaks = [json.loads((RANKS_DIR / f"serve_peak_{tag}_{r}.json").read_text())["peak_bytes"] for r in range(n)]
+        run_n = {"report": res["report"]}
+        log(serve_summary(f"serve ranks {shape} over NCCL across {n} cards", card, run_n,
+                          f"; buckets {res['buckets']}; launches on the lead {res['launches']}; peak memory above its "
+                          f"start on the fullest rank {max(peaks)} B (ranks {peaks}); run {time.perf_counter() - t0:.1f} s with "
+                          f"process start; {frames.shape[0]} frames bitwise equal to world 1: {same}"))
+        if not same:
+            raise SystemExit(f"serve ranks: the {shape} mesh's frames are not bitwise the world-1 server's")
+        out["multi_card"][tag] = {"frames_per_s": res["report"]["frames_per_s"],
+                                  "latency_ms": res["report"]["latency_ms"], "mesh": res["report"]["mesh"],
+                                  "peak_bytes": peaks}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -763,8 +1009,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train-views", type=int, default=8, help="ray-marched orbit views to train on")
     ap.add_argument("--eval-views", type=int, default=2)
     ap.add_argument("--ranks-only", action="store_true",
-                    help="build, make the scene and its training views, run phase 5b (ranks) alone and print its "
-                         "result as JSON on the last line")
+                    help="build, make the scene and its training views, run phases 4b (serve ranks, with its own "
+                         "one-device server) and 5b (ranks) alone and print their result as JSON on the last line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -807,7 +1053,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.train import GSTrainer
     from repro_torch.obs import Obs
     from repro_torch.optim.adam import adam_update
-    from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
+    from repro_torch.serve_gs import RenderServer, stack_cameras
     from repro_torch.volume.cameras import camera_slice, orbit_cameras
 
     dev = card_device()
@@ -853,10 +1099,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"ground truth: {args.train_views} orbit views ray-marched at {cfg.img_h} px on the card "
         f"({time.perf_counter() - t0:.2f} s), covered share {float((data.gt.max(-1) > 0).mean()):.4f}")
+    counters = {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count,
+                "tile_raster_bwd": tr_ops.bwd_launch_count, "flash_attention": fa_ops.launch_count}
     if args.ranks_only:
-        counters = {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count,
-                    "tile_raster_bwd": tr_ops.bwd_launch_count, "flash_attention": fa_ops.launch_count}
-        print(json.dumps(ranks_phase(dev, card, host, data, counters)), flush=True)
+        result = {"serve_ranks": serve_ranks_phase(dev, card, host, cfg, args, counters, None),
+                  "ranks": ranks_phase(dev, card, host, data, counters)}
+        torch.distributed.destroy_process_group()
+        print(json.dumps(result), flush=True)
         return 0
 
     # ---------------------------------------------------------- 2. compare
@@ -1053,26 +1302,19 @@ def main(argv=None) -> int:
                           max_batch=4, pipeline_depth=2, frames_capacity=4 * n_req)
     log(f"serve: levels live {list(server.pyramid.live_counts)}, "
         f"warmup {server.warmup(buckets=(1,)):.2f} s")
-    clients = make_clients(args.clients, n_views=12, img_h=cfg.img_h, img_w=cfg.img_w, radius_spread=1.0)
     torch.cuda.reset_peak_memory_stats(dev)
-    gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = fa_ops.launch_count.n = 0
-    report = run_load(server, clients, requests_per_client=args.requests)
-    # a localized update: drop two tile rows of the timestep, then revisit two
-    # served poses -> partial hits render only those rows (the strip path)
-    server.invalidate(0, rows={row, row + 1})
-    revisit = [server.submit(camera_slice(cams, i)) for i in range(2)]
-    frames_revisit = [f.result() for f in revisit]
-    server.run()
-    serve_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n,
-                      fa_ops.launch_count.n)
+    # orbit clients, then a localized update (two tile rows dropped) and two
+    # revisited poses -> partial hits render only those rows (the strip path)
+    served = serve_load(server, cfg, args.clients, args.requests, counters)
+    serve_launches = tuple(served["launches"].values())
     gp_launches, tr_launches = serve_launches[:2]
-    report = server.report()
+    report = served["report"]
     peak = torch.cuda.max_memory_allocated(dev)
     done = report["completed"]
-    if done != n_req + len(revisit):
-        raise SystemExit(f"served {done} of {n_req + len(revisit)} requests")
-    frames = list(server.frames.values())
-    for f in frames + frames_revisit:
+    if done != n_req + len(served["revisit"]):
+        raise SystemExit(f"served {done} of {n_req + len(served['revisit'])} requests")
+    frames = served["frames"]
+    for f in frames + served["revisit"]:
         if f.shape != (cfg.img_h, cfg.img_w, 3) or not np.isfinite(f).all() or f.min() < -1e-6 or f.max() > 1 + 1e-6:
             raise SystemExit(f"bad frame: shape {f.shape}, range [{f.min()}, {f.max()}]")
     if gp_launches == 0 or tr_launches == 0 or serve_launches[2] or serve_launches[3]:
@@ -1088,7 +1330,11 @@ def main(argv=None) -> int:
         f"dispatch {report['pipeline']['dispatch_s']} s, block {report['pipeline']['block_s']} s")
     log(f"launches on the main path: gsproject {gp_launches}, tile_raster {tr_launches} "
         f"({rendered:.3f} full-frame equivalents rendered)")
+    serve_profile(server, cfg, "serve micro-batch (one device)")
     server.close()
+
+    # ---------------------------------------------------------- 4b. serve ranks
+    serve_ranks = serve_ranks_phase(dev, card, host, cfg, args, counters, served)
 
     # strip bitwise equal to the same rows of the full frame (tile cache rests on it)
     full = make_batched_eval_render(cfg)(g_dev, stack_cameras([cam]))[0]  # level 0 = the full model
@@ -1243,14 +1489,13 @@ def main(argv=None) -> int:
         raise SystemExit("card train step after a resizing densify round disagrees with the CPU path")
 
     # ---------------------------------------------------------- 5b. ranks
-    counters = {"gsproject": gp_ops.launch_count, "tile_raster_fwd": tr_ops.launch_count,
-                "tile_raster_bwd": tr_ops.bwd_launch_count, "flash_attention": fa_ops.launch_count}
     ranks = ranks_phase(dev, card, host, data, counters)
     ranks_launches = ranks["launches"]
     log(f"ranks ({card}): world-1 sharded step p50 {ranks['step_ms']} ms, one-device step in the same phase "
         f"{ranks['one_device_step_ms']} ms, phase 5's one-device p50 {float(np.median(step_ms)):.3f} ms; launches "
         f"{ranks_launches}")
     del data
+    torch.distributed.destroy_process_group()  # the world-1 group of phases 4b and 5b
 
     # ---------------------------------------------------------- 7. lm
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
@@ -1260,7 +1505,8 @@ def main(argv=None) -> int:
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
     def by_path(i: int, name: str) -> dict:
-        return {"serve": serve_launches[i], "train": train_launches[i], "ranks": ranks_launches[name],
+        return {"serve": serve_launches[i], "serve_ranks": serve_ranks["launches"][name],
+                "train": train_launches[i], "ranks": ranks_launches[name],
                 "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name]}
 
     kernels = [

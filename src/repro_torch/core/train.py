@@ -16,10 +16,11 @@ backward is the plain version's VJP, as in the JAX package), the rasterizer
 forward and the rasterizer backward. On the CPU the plain PyTorch versions
 run, and the CPU tests hold them to the JAX package.
 
-The serving stack renders through the eval factories: ``make_eval_render``
-(one view; across ranks too), ``make_batched_eval_render`` (a batch of
-views, the serving hot path) and ``make_tile_row_render`` (one tile row of
-one view, the partial-render primitive of the tile cache).
+The serving stack renders through the eval factories, on one device or
+across ranks: ``make_eval_render`` (one view), ``make_batched_eval_render``
+(a batch of views, the serving hot path; its views split over the data
+axis) and ``make_tile_row_render`` (one tile row of one view, the
+partial-render primitive of the tile cache).
 """
 from __future__ import annotations
 
@@ -401,12 +402,6 @@ class _OnDevice:
         return t
 
 
-def _project_sorted(params: G.GaussianModel, cam: P.Camera) -> torch.Tensor:
-    packed = P.project(params, cam)
-    pk_sorted, _ = P.sort_by_depth(packed)
-    return pk_sorted
-
-
 def _view(cams: P.Camera, i: int) -> P.Camera:
     return P.Camera(*[x[i] for x in cams])
 
@@ -437,7 +432,7 @@ def make_eval_render(cfg: GSConfig, mesh: Mesh | None = None):
     return fn
 
 
-def make_tile_row_render(cfg: GSConfig, *, row: int):
+def make_tile_row_render(cfg: GSConfig, *, row: int, mesh: Mesh | None = None):
     """Eval render of ONE horizontal tile row of one view.
 
     Returned fn: (params, a single Camera) -> (cfg.tile_h, cfg.img_w, 3)
@@ -451,13 +446,23 @@ def make_tile_row_render(cfg: GSConfig, *, row: int):
     pixel coordinates through ``row_offset``. The serving tile cache rests
     on this: a cache that already holds most of a frame's tiles re-renders
     only the missing rows.
+
+    On a mesh, ``params`` is this rank's model shard: the projected shards
+    cross the model axis in one all-gather before the sort, and every data
+    row computes the same strip (the camera is replicated, as the JAX
+    package's ``in_specs`` replicate it). Unlike the JAX package, which bins
+    strips flat, the strip keeps the frame's superblock geometry, so it
+    stays bitwise equal to its frame's rows on every mesh.
     """
     bg = _OnDevice(cfg.bg)
     row = int(row)
     row_offset = row * cfg.tile_h
 
     def fn(params: G.GaussianModel, cam: P.Camera) -> torch.Tensor:
-        pk_sorted = _project_sorted(params, cam)
+        packed = P.project(params, cam)
+        if mesh is not None:
+            packed = gather_rows(packed, mesh.model)
+        pk_sorted, _ = P.sort_by_depth(packed)
         idx, valid = R.bin_tile_row(
             pk_sorted,
             row=row,
@@ -478,7 +483,7 @@ def make_tile_row_render(cfg: GSConfig, *, row: int):
     return fn
 
 
-def make_batched_eval_render(cfg: GSConfig):
+def make_batched_eval_render(cfg: GSConfig, mesh: Mesh | None = None):
     """Eval render of a BATCH of views (the serving hot path).
 
     Returned fn: (params, cams: Camera with a leading batch dim B) ->
@@ -486,11 +491,24 @@ def make_batched_eval_render(cfg: GSConfig):
     other (the JAX package's "map" mode): one view's working set at a time.
     On a CUDA device every launch is asynchronous, so the call returns while
     the batch still renders; the caller decides when to wait.
+
+    On a (data, model) mesh every rank gets all B cameras and ``params`` is
+    its model shard. The rank at data index i renders views
+    ``[i*B/d, (i+1)*B/d)`` (each through :func:`make_eval_render`'s model
+    gather), and the images cross the data axis in one all-gather, so every
+    rank returns the B images in batch order. B must divide by d.
     """
-    one = make_eval_render(cfg)
+    one = make_eval_render(cfg, mesh)
 
     def fn(params: G.GaussianModel, cams: P.Camera) -> torch.Tensor:
         b = int(cams.fx.shape[0])
-        return torch.stack([one(params, _view(cams, i))[0] for i in range(b)])
+        if mesh is None:
+            return torch.stack([one(params, _view(cams, i))[0] for i in range(b)])
+        d = mesh.data.size
+        if b % d:
+            raise ValueError(f"a batch of {b} views does not split over {d} data ranks")
+        k, i = b // d, mesh.data.index
+        local = torch.stack([one(params, _view(cams, i * k + v))[0] for v in range(k)])
+        return gather_rows(local, mesh.data)
 
     return fn

@@ -52,23 +52,49 @@ submitting the same camera with different ``timestep`` values — each
 (timestep, level, pose) is a distinct cacheable frame. The render fns are shared across the whole
 timeline.
 
-This is the JAX package's server on one ``torch.device``: the mesh and its
-shardings are gone (sharded serving comes with the port's multi-rank slice),
-the level parameters live on the server's device, and there is no jit cache
-to count or warm beyond the kernel library build.
+**Across ranks.** With ``mesh=`` (a ``core/sharding.Mesh`` over the
+initialized process group) the server is the JAX package's sharded server
+with one process per rank. Construction is a collective: every rank builds
+the server in the same order with the same arguments. Mesh rank 0 is the
+**lead**: only its ``params`` count, and it alone owns the batcher, the
+caches, the futures, the pose registry and the metrics, and runs every
+public serving method. The other ranks call :meth:`RenderServer.serve_follower`,
+which renders what the lead tells them and returns when the lead closes.
+
+- Every LOD level is sharded over ``model``: rank j of the model axis holds
+  rows ``[j*n/m, (j+1)*n/m)`` of each level, replicated over ``data``. The
+  lead broadcasts each level over the world group and every rank keeps its
+  rows; a level whose row count does not divide by m raises ``ValueError``
+  on every rank (no silent padding: padding changes the model).
+- Micro-batches shard over ``data``: ``max_batch`` rounds up to a multiple
+  of d and every bucket divides by d, so a bucket-d batch renders one view
+  per data rank (``make_batched_eval_render(cfg, mesh)``).
+- The control plane: before each collective render the lead broadcasts a
+  small float64 descriptor (op, level, timestep, row, the view count and
+  the cameras) over a gloo group of the same ranks, so no device stream
+  waits on a host read and the lead's dispatch stays asynchronous. Every
+  follower wait is bounded by that group's timeout (``CONTROL_TIMEOUT_S``),
+  and a follower whose lead died raises, so it exits non-zero.
+
+With ``mesh=None`` the server runs on one ``torch.device``, and the level
+parameters live there. There is no jit cache to count or warm beyond the
+kernel library build.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import datetime
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import gaussians as G
 from repro_torch.core.config import GSConfig
 from repro_torch.core.projection import Camera, camera_to_numpy
+from repro_torch.core.sharding import Mesh
 from repro_torch.core.train import make_batched_eval_render, make_tile_row_render
 from repro_torch.obs import DEFAULT_SIZE_BUCKETS, Obs
 from repro_torch.obs.clock import now as _now
@@ -88,6 +114,14 @@ from repro_torch.serve_gs.lod import (
     select_level,
     select_level_map,
 )
+
+
+# the control plane: the lead broadcasts one descriptor before each
+# collective render; followers act on its op
+_OP_BATCH, _OP_STRIP, _OP_TIMESTEP, _OP_CLOSE, _OP_ABORT = 1, 2, 3, 4, 5
+_HEADER = 5        # op, level, timestep, row, views
+_CAM_FLOATS = 20   # viewmat (16), fx, fy, cx, cy
+CONTROL_TIMEOUT_S = 600.0  # bound on every control-plane wait (a follower's wait for the lead)
 
 
 def _host_model(params) -> G.GaussianModel:
@@ -194,14 +228,38 @@ class TimestepModels(NamedTuple):
     level_params: tuple[G.GaussianModel, ...]  # tensors on the server's device
 
 
+def _check_rows(counts, m: int) -> None:
+    """Every level's row count must split into ``m`` equal model shards."""
+    for lvl, n in enumerate(counts):
+        if n % m:
+            raise ValueError(
+                f"LOD level {lvl} has n={n} Gaussians, which do not split into m={m} equal model "
+                f"shards (the JAX package's device_put refuses it too); pad the model to a multiple of {m}"
+            )
+
+
+def _pack_level(lvl: G.GaussianModel) -> np.ndarray:
+    """One level as an (n, 11 + 3K) float32 host array, fields side by side."""
+    n = int(np.asarray(lvl.means).shape[0])
+    return np.concatenate([np.asarray(x, np.float32).reshape(n, -1) for x in lvl], axis=1)
+
+
+def _unpack_level(rows: torch.Tensor, k: int) -> G.GaussianModel:
+    """Inverse of :func:`_pack_level` for a block of rows (own copies)."""
+    means, log_scales, quats, opacity, sh = torch.split(rows, [3, 3, 4, 1, 3 * k], dim=1)
+    return G.GaussianModel(means.contiguous(), log_scales.contiguous(), quats.contiguous(),
+                           opacity[:, 0].contiguous(), sh.reshape(-1, k, 3).contiguous())
+
+
 class RenderServer:
     """Batched, LOD-aware, cached, pipelined render service over a timeline."""
 
     def __init__(
         self,
-        params: G.GaussianModel,
+        params: G.GaussianModel | None,
         cfg: GSConfig,
         *,
+        mesh: Mesh | None = None,
         device="cuda",
         n_levels: int = 3,
         keep_ratio: float = 0.5,
@@ -223,12 +281,20 @@ class RenderServer:
         # metrics registry (atomic snapshot, one reset) + the span recorder
         # (falsy NULL_RECORDER unless tracing is enabled)
         self.obs = obs if obs is not None else Obs()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "RenderServer(device='cuda') needs a CUDA device; pass device='cpu' "
-                "to serve through the plain PyTorch versions"
-            )
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.device
+            # one gloo group of every rank for the descriptors; made here, so
+            # construction is a collective
+            self._control = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+        else:
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "RenderServer(device='cuda') needs a CUDA device; pass device='cpu' "
+                    "to serve through the plain PyTorch versions"
+                )
+        self.is_lead = mesh is None or mesh.rank == 0
         self.pose_quantum = pose_quantum
         self.store_frames = store_frames
         self.frames_capacity = max(int(frames_capacity), 1)
@@ -250,9 +316,15 @@ class RenderServer:
         self.tiles_x = cfg.img_w // self.tile_w
         self.n_tiles = self.tiles_y * self.tiles_x
 
-        max_batch = max(int(max_batch), 1)
+        # Micro-batches shard over the mesh's data axis, so every bucket must
+        # be a multiple of it: a d-rank data axis renders a bucket-d batch
+        # one view per rank — batching IS the data parallelism.
+        d = mesh.data.size if mesh is not None else 1
+        max_batch = d * max(-(-int(max_batch) // d), 1)  # round up to a multiple of d
         if buckets is None:
-            buckets = default_buckets(max_batch)
+            buckets = tuple(d * b for b in default_buckets(max_batch // d))
+        if any(b % d for b in buckets):
+            raise ValueError(f"every bucket must divide by the data axis size {d}: {buckets}")
         # A level with keep_ratio**k of the Gaussians needs proportionally
         # fewer splats per tile: compositing is O(tiles x k_per_tile) and is
         # the dominant render term, so shrinking K is what actually makes a
@@ -266,8 +338,24 @@ class RenderServer:
         )
         # one render fn per level, shared by every timeline entry
         self._level_render = tuple(
-            make_batched_eval_render(c) for c in self._level_cfgs  # analysis: allow(retrace.factory_in_loop, one factory call per LOD level at construction; cached in _level_render for the server lifetime)
+            make_batched_eval_render(c, mesh) for c in self._level_cfgs  # analysis: allow(retrace.factory_in_loop, one factory call per LOD level at construction; cached in _level_render for the server lifetime)
         )
+        self._strip_renders: dict[tuple[int, int], object] = {}  # (level, row)
+        self._closed = False
+        self._timeline: dict[int, TimestepModels] = {}
+        self._first_timestep = int(timestep)
+        if mesh is not None:
+            # one reused descriptor buffer, sized for the largest batch
+            self._descriptor = torch.zeros(_HEADER + _CAM_FLOATS * max(max_batch, *buckets), dtype=torch.float64)
+            self._control_sends = 0
+            self._control_s = 0.0
+            self._levels_s = 0.0  # wall of every level exchange so far, the device drained
+            self._control_work = None  # the lead's descriptor broadcast in flight
+            if not self.is_lead:
+                # a follower holds its shard of every level and renders what
+                # the lead sends (serve_follower); the host side is the lead's
+                self._timeline[self._first_timestep] = TimestepModels(None, self._exchange_levels(None))
+                return
 
         # Pose registry: every pose that ever populated the tile cache, keyed
         # by its quantized-camera signature (the pose part of the cache key).
@@ -282,8 +370,6 @@ class RenderServer:
         # budget_ms -> budget_rows mapping for foveated requests
         self._row_cost_ms: float | None = None
 
-        self._timeline: dict[int, TimestepModels] = {}
-        self._first_timestep = int(timestep)
         self.add_timestep(timestep, params)
 
         self.batcher = MicroBatcher(max_batch=max_batch, buckets=buckets)
@@ -315,9 +401,7 @@ class RenderServer:
         self._ring: collections.deque[_InFlight] = collections.deque()
         self._pending: dict[tuple, FrameFuture] = {}  # in-flight key -> future
         self._partial: collections.deque[_PartialJob] = collections.deque()
-        self._strip_renders: dict[tuple[int, int], object] = {}  # (level, row)
         self._invalidation_listeners: list = []
-        self._closed = False
 
         # ---- metrics: typed registry entries under server.* (see obs/metrics.py).
         # Everything here is a WINDOW quantity — one registry.reset() zeroes
@@ -365,6 +449,9 @@ class RenderServer:
         self._busy_until = 0.0
         self._timestep_requests = {}
         self._t_first = self._t_last = None
+        if self.mesh is not None:
+            self._control_sends = 0
+            self._control_s = 0.0
 
     # historical attribute reads, now backed by the shared registry
     @property
@@ -445,7 +532,12 @@ class RenderServer:
         only): an explicit iterable of screen tile-row indices to drop for
         every pose, for callers that computed the footprint themselves. The
         two are mutually exclusive; omitting both drops the whole timestep.
+
+        On a mesh (lead only) the new model's levels go out to every rank as
+        at construction; a level whose row count does not divide by the
+        model axis raises ``ValueError`` before anything is sent.
         """
+        self._lead_only("add_timestep")
         if changed is not None and dirty_rows is not None:
             raise ValueError("pass either changed= or dirty_rows=, not both")
         cache = getattr(self, "cache", None)  # absent during __init__'s first entry
@@ -462,13 +554,134 @@ class RenderServer:
             keep_ratio=self.keep_ratio,
             pad_quantum=self.cfg.pad_quantum,
         )
-        level_params = tuple(G.from_numpy(lvl, self.device) for lvl in pyramid.levels)
+        if self.mesh is None:
+            level_params = tuple(G.from_numpy(lvl, self.device) for lvl in pyramid.levels)
+        else:
+            if cache is not None:  # a live server: its followers wait in serve_follower
+                _check_rows([lvl.n for lvl in pyramid.levels], self.mesh.model.size)
+                self._send(_OP_TIMESTEP, timestep=int(timestep))
+            level_params = self._exchange_levels(pyramid.levels)
         entry = TimestepModels(pyramid, level_params)
         self._timeline[int(timestep)] = entry
         return entry
 
     def timesteps(self) -> list[int]:
         return sorted(self._timeline)
+
+    # ---------------------------------------------------------------- ranks
+    def _lead_only(self, what: str) -> None:
+        if not self.is_lead:
+            raise RuntimeError(f"RenderServer.{what}: only the lead (mesh rank 0) serves; "
+                               "the other ranks call serve_follower()")
+
+    def _exchange_levels(self, levels) -> tuple[G.GaussianModel, ...]:
+        """Every rank's model shard of one timestep's levels (a collective).
+
+        The lead (``levels``: the host pyramid's levels) broadcasts the level
+        count, the SH width and each level's row count over the control
+        group, every rank checks that each count divides by the model axis,
+        then each level goes out whole over the world group (NCCL on the
+        card, gloo on the CPU) and every rank keeps its rows. Followers pass
+        ``None``."""
+        t0 = _now()
+        self._control_flush()
+        mesh = self.mesh
+        head = torch.zeros(2 + self.n_levels, dtype=torch.int64)
+        if levels is not None:
+            head[0], head[1] = len(levels), np.asarray(levels[0].sh).shape[1]
+            head[2 : 2 + len(levels)] = torch.tensor([lvl.n for lvl in levels])
+        dist.broadcast(head, 0, group=self._control)
+        n_lvl, k = int(head[0]), int(head[1])
+        counts = head[2 : 2 + n_lvl].tolist()
+        _check_rows(counts, mesh.model.size)
+        out = []
+        for i, n in enumerate(counts):
+            if levels is not None:
+                full = torch.from_numpy(_pack_level(levels[i])).to(self.device)
+            else:
+                full = torch.empty((n, 11 + 3 * k), dtype=torch.float32, device=self.device)
+            dist.broadcast(full, 0)
+            rows = n // mesh.model.size
+            out.append(_unpack_level(full[mesh.model.index * rows : (mesh.model.index + 1) * rows], k))
+        self._sync()
+        self._levels_s += _now() - t0
+        return tuple(out)
+
+    def _send(self, op: int, *, level: int = 0, timestep: int = 0, row: int = 0, cams=None) -> None:
+        """Broadcast one descriptor from the lead (the control plane) without
+        waiting for it to arrive: the lead goes on to enqueue its own part of
+        the render. The one buffer is refilled only once the previous
+        descriptor is out."""
+        t0 = _now()
+        b = 0 if cams is None else int(np.asarray(cams.fx).shape[0])
+        if _HEADER + _CAM_FLOATS * b > self._descriptor.numel():
+            raise ValueError(f"a batch of {b} views exceeds the descriptor's {self._descriptor.numel()} floats")
+        self._control_flush()
+        desc = self._descriptor.numpy()
+        desc[:_HEADER] = (op, level, timestep, row, b)
+        if b:
+            desc[_HEADER : _HEADER + _CAM_FLOATS * b] = np.concatenate(
+                [np.asarray(x, np.float32).reshape(b, -1) for x in cams], axis=1
+            ).reshape(-1)
+        self._control_work = dist.broadcast(self._descriptor, 0, group=self._control, async_op=True)
+        self._control_sends += 1
+        self._control_s += _now() - t0
+
+    def _control_flush(self) -> None:
+        """Wait until the last descriptor the lead sent is out."""
+        if self._control_work is not None:
+            self._control_work.wait()
+            self._control_work = None
+
+    def _descriptor_cams(self, b: int) -> Camera:
+        """The ``b`` float32 cameras of the last received descriptor."""
+        flat = self._descriptor.numpy()[_HEADER : _HEADER + _CAM_FLOATS * b].astype(np.float32).reshape(b, -1)
+        return Camera(flat[:, :16].reshape(b, 4, 4), *[np.ascontiguousarray(flat[:, 16 + i]) for i in range(4)])
+
+    def _render_batch(self, level: int, timestep: int, cams: Camera) -> torch.Tensor:
+        """One (level, bucket) batched render; on a mesh the lead first tells
+        its followers to join it."""
+        if self.mesh is not None:
+            self._send(_OP_BATCH, level=level, timestep=timestep, cams=cams)
+        return self._level_render[level](self._entry(timestep).level_params[level], cams)
+
+    def _render_strip(self, level: int, timestep: int, row: int, cam: Camera) -> torch.Tensor:
+        """One tile-row render; on a mesh every rank renders the camera the
+        descriptor carries (float32), the lead included."""
+        if self.mesh is not None:
+            cams = stack_cameras([cam])
+            self._send(_OP_STRIP, level=level, timestep=timestep, row=row, cams=cams)
+            cam = Camera(*[x[0] for x in cams])
+        return self._strip_fn(level, row)(self._entry(timestep).level_params[level], cam)
+
+    def serve_follower(self) -> None:
+        """A follower's serve loop: wait for the lead's next descriptor and
+        join its collective render (the frames stay with the lead), until the
+        lead closes. Raises if the lead aborted, died (the control group
+        reports the closed connection) or sent nothing for
+        ``CONTROL_TIMEOUT_S``, so a follower never carries on past its lead."""
+        if self.is_lead:
+            raise RuntimeError("RenderServer.serve_follower: the lead serves through submit/step/run")
+        desc = self._descriptor
+        while True:
+            dist.broadcast(desc, 0, group=self._control)
+            op, level, ts, row, b = (int(x) for x in desc[:_HEADER].tolist())
+            if op == _OP_BATCH:
+                self._level_render[level](self._timeline[ts].level_params[level], self._descriptor_cams(b))
+            elif op == _OP_STRIP:
+                cam = Camera(*[x[0] for x in self._descriptor_cams(1)])
+                self._strip_fn(level, row)(self._timeline[ts].level_params[level], cam)
+            elif op == _OP_TIMESTEP:
+                self._timeline[ts] = TimestepModels(None, self._exchange_levels(None))
+            elif op == _OP_CLOSE:
+                self._sync()
+                self._closed = True
+                return
+            elif op == _OP_ABORT:
+                self._closed = True
+                raise RuntimeError("RenderServer.serve_follower: the lead rank failed and aborted serving")
+            else:
+                raise RuntimeError(f"RenderServer.serve_follower: unknown control op {op}")
 
     # ----------------------------------------------------------- invalidation
     def add_invalidation_listener(self, cb) -> None:
@@ -493,6 +706,7 @@ class RenderServer:
         raises: the whole-frame cache cannot honor a row-granular drop, and
         silently widening it to the full frame would hide the caller's wrong
         assumption about what stayed cached."""
+        self._lead_only("invalidate")
         if rows is not None and not self.tile_cache:
             raise ValueError(
                 "invalidate(rows=...) needs tile_cache=True — a whole-frame "
@@ -586,14 +800,15 @@ class RenderServer:
         context, the caching allocator's first blocks) before the first
         client connects. Does not touch the serving metrics or the cache.
         """
+        self._lead_only("warmup")
         buckets = buckets or self.batcher.buckets
         t0 = _now()
         for ts in timesteps if timesteps is not None else [self.timesteps()[0]]:
             entry = self._entry(ts)
             cam = front_camera(entry.pyramid, img_h=self.cfg.img_h, img_w=self.cfg.img_w)
-            for lvl, lp in enumerate(entry.level_params):
+            for lvl in range(len(entry.level_params)):
                 for b in buckets:
-                    self._level_render[lvl](lp, stack_cameras([cam] * b))
+                    self._render_batch(lvl, ts, stack_cameras([cam] * b))
         self._sync()
         return _now() - t0
 
@@ -645,6 +860,7 @@ class RenderServer:
         admit) so the span tree keeps one id end to end; in-process callers
         omit it and the request mints its own.
         """
+        self._lead_only("submit")
         if self._closed:
             raise RuntimeError("RenderServer is closed")
         t = _now() if t_submit is None else t_submit
@@ -828,13 +1044,14 @@ class RenderServer:
         """The single-view tile-row render for (level, row), built lazily."""
         fn = self._strip_renders.get((level, row))
         if fn is None:
-            fn = make_tile_row_render(self._level_cfgs[level], row=row)
+            fn = make_tile_row_render(self._level_cfgs[level], row=row, mesh=self.mesh)
             self._strip_renders[(level, row)] = fn
         return fn
 
     def warmup_tiles(self, *, levels=None, rows=None, timesteps=None) -> float:
         """Render tile-row variants once (the partial-hit path); returns
         seconds."""
+        self._lead_only("warmup_tiles")
         assert self.tile_cache, "tile-row renders exist only with tile_cache"
         t0 = _now()
         for ts in timesteps if timesteps is not None else [self.timesteps()[0]]:
@@ -842,7 +1059,7 @@ class RenderServer:
             cam = front_camera(entry.pyramid, img_h=self.cfg.img_h, img_w=self.cfg.img_w)
             for lvl in levels if levels is not None else range(len(entry.level_params)):
                 for row in rows if rows is not None else range(self.tiles_y):
-                    self._strip_fn(lvl, row)(entry.level_params[lvl], cam)
+                    self._render_strip(lvl, ts, row, cam)
         self._sync()
         return _now() - t0
 
@@ -857,7 +1074,6 @@ class RenderServer:
         """Render a partial hit's missing tile rows — each at its assigned
         level for foveated jobs — then assemble and resolve."""
         req = job.req
-        entry = self._entry(req.timestep)
         cam = req.cam
         lvl_of = (lambda r: job.row_levels[r]) if job.row_levels is not None else (lambda r: req.level)
         key_of = (lambda r: job.row_keys[r]) if job.row_keys is not None else (lambda r: req.cache_key)
@@ -866,10 +1082,7 @@ class RenderServer:
         )
         t0 = _now()
         # dispatch every missing row first (asynchronous launches), then wait
-        launched = [
-            (r, self._strip_fn(lvl_of(r), r)(entry.level_params[lvl_of(r)], cam))
-            for r in missing
-        ]
+        launched = [(r, self._render_strip(lvl_of(r), req.timestep, r, cam)) for r in missing]
         self._c_dispatch_s.add(_now() - t0)
         for r, dev in launched:
             strip = dev.cpu().numpy()  # (tile_h, W, 3); waits for this strip
@@ -912,9 +1125,8 @@ class RenderServer:
         mb: MicroBatch | None = self.batcher.next_batch()
         if mb is None:
             return False
-        entry = self._entry(mb.timestep)
         t0 = _now()
-        imgs = self._level_render[mb.level](entry.level_params[mb.level], mb.cams)
+        imgs = self._render_batch(mb.level, mb.timestep, mb.cams)
         ready = None
         if imgs.device.type == "cuda":
             # queue the device->host copy behind the render and mark its end;
@@ -977,6 +1189,7 @@ class RenderServer:
         depth 1 with no partial jobs this is exactly the synchronous
         submit->render->block loop this server used to run.
         """
+        self._lead_only("step")
         if self._partial:
             return self._run_partial(self._partial.popleft())
         while len(self._ring) < self.pipeline_depth and self._dispatch_one():
@@ -990,6 +1203,7 @@ class RenderServer:
         in-flight ring AND queued partial-hit jobs — without dispatching new
         micro-batches; returns requests completed. Invalidation goes through
         here so no old-model tile can land after its drop."""
+        self._lead_only("flush")
         done = 0
         while self._ring:
             done += self._retire_one()
@@ -999,6 +1213,7 @@ class RenderServer:
 
     def run(self) -> int:
         """Drain the queue, partial jobs, and the ring; returns completed."""
+        self._lead_only("run")
         done = 0
         while self.batcher.pending or self._ring or self._partial:
             done += self.step()
@@ -1012,20 +1227,40 @@ class RenderServer:
         the futures of requests still waiting in the batcher queue with a
         ``RuntimeError`` (their ``result()`` raises instead of spinning on a
         dead pipeline), drops the queue, and releases the retirement buffer.
-        Idempotent; ``submit`` after close raises."""
+        Idempotent; ``submit`` after close raises. On a mesh the lead then
+        sends the close op, and its followers' ``serve_follower`` returns; a
+        follower's close is a no-op once that has happened."""
         if self._closed:
             return 0
+        self._lead_only("close")
         self._closed = True
         self.flush()  # in-flight work (ring + partials) completes with frames
+        failed = self._fail_pending(RuntimeError("RenderServer closed before this request rendered"))
+        if self.mesh is not None:
+            self._send(_OP_CLOSE)
+            self._control_flush()
+        return failed
+
+    def _fail_pending(self, err: BaseException) -> int:
+        """Fail every queued-but-never-dispatched request (retired keys have
+        left ``_pending``); drop the queue and the retirement buffer."""
         failed = 0
-        err = RuntimeError("RenderServer closed before this request rendered")
-        for fut in self._pending.values():  # queued-but-never-dispatched only:
-            fut._fail(err)                  # retired keys left _pending above
+        for fut in self._pending.values():
+            fut._fail(err)
             failed += len(fut.requests)
         self._pending.clear()
         self.batcher.clear()
         self.frames.clear()
         return failed
+
+    def _abort(self) -> None:
+        """The mesh lead leaves on an exception: no flush (the render path
+        may be what failed), the pending requests fail, and the abort op
+        makes every follower raise instead of waiting for the next render."""
+        self._closed = True
+        self._fail_pending(RuntimeError("RenderServer aborted before this request rendered"))
+        self._send(_OP_ABORT)
+        self._control_flush()
 
     @property
     def closed(self) -> bool:
@@ -1034,8 +1269,11 @@ class RenderServer:
     def __enter__(self) -> "RenderServer":
         return self
 
-    def __exit__(self, *exc) -> None:
-        self.close()
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None and self.mesh is not None and self.is_lead and not self._closed:
+            self._abort()
+        elif self.is_lead or self._closed:
+            self.close()
 
     def _advance(self) -> bool:
         """One pipeline unit on behalf of an awaited future; False if idle."""
@@ -1050,6 +1288,7 @@ class RenderServer:
         cache, and — when the stack shares one ``Obs`` — sessions, encoders,
         and the gateway, in one atomic call. Leaves structural state (cache
         contents, timeline, strip renders) untouched; requires an idle pipeline."""
+        self._lead_only("reset_metrics")
         assert not self._ring and not self.batcher.pending and not self._partial, (
             "pipeline not idle"
         )
@@ -1083,6 +1322,7 @@ class RenderServer:
         }
 
     def report(self) -> dict:
+        self._lead_only("report")
         wall = (self._t_last - self._t_first) if (self._t_first is not None and self._t_last) else 0.0
         lat = self._latency_ms
         return {
@@ -1139,6 +1379,17 @@ class RenderServer:
                 "rows_per_level": [c.value for c in self._c_lod_rows],
                 "foveated_requests": self._c_foveated.value,
                 "row_cost_ms": round(self._row_cost_ms, 4) if self._row_cost_ms else 0.0,
+            },
+            "mesh": None if self.mesh is None else {
+                "data": self.mesh.data.size,
+                "model": self.mesh.model.size,
+                # the control plane: descriptors sent and their host cost on the lead
+                "control_sends": self._control_sends,
+                "control_s": round(self._control_s, 6),
+                "control_us_per_send": round(self._control_s / self._control_sends * 1e6, 3)
+                if self._control_sends else 0.0,
+                # every level exchange since construction (broadcast, then each rank keeps its rows)
+                "levels_s": round(self._levels_s, 6),
             },
             "timeline": {
                 "timesteps": self.timesteps(),

@@ -2,8 +2,10 @@
 PyTorch version, the serving path through the forward kernels, a train
 step through the three splatting kernels against the same step on the CPU,
 the sharded train step on a world-1 NCCL mesh bitwise against the
-one-device step (and across cards where there are two or more), and the LM
-prefill step through the attention kernel against the CPU.
+one-device step (and across cards where there are two or more), the mesh
+render server on a world-1 NCCL mesh (and on (2, 1) across cards) bitwise
+against the one-device server, and the LM prefill step through the
+attention kernel against the CPU.
 
 Every test here needs a CUDA device and skips without one (the decision is
 made inside the ``cuda_device`` fixture, so every xdist worker collects the
@@ -524,6 +526,79 @@ def test_sharded_step_across_cards_over_nccl_matches_world_one(cuda_device, tmp_
         want.append(float(m["loss"]))
     for r in ranks:
         np.testing.assert_allclose(r["r/losses"], want, rtol=1e-5)
+
+def _serve_inputs() -> dict:
+    """The serve scenario's inputs (``tests/torch_ranks.serve_scenario``) as
+    numpy: 4,096 Gaussians, their update (the two top Gaussians nudged),
+    four near and two far orbit views (LOD levels 0 and 1)."""
+    from repro_torch.volume.cameras import orbit_cameras
+
+    host = _scene(4096, seed=8, scale=0.03)
+    means = host.means.copy()
+    changed = np.argsort(-means[:, 1])[:2]
+    means[changed, 0] += 0.01
+    out = {"s.changed": changed}
+    for f in host._fields:
+        out[f"s.params.{f}"] = getattr(host, f)
+        out[f"s.new.{f}"] = means if f == "means" else getattr(host, f)
+    near = orbit_cameras(4, img_h=64, img_w=64, radius=3.0)
+    far = orbit_cameras(2, img_h=64, img_w=64, radius=12.0)
+    for f in near._fields:
+        out[f"s.cams.{f}"] = np.concatenate([np.asarray(getattr(near, f)), np.asarray(getattr(far, f))])
+    return out
+
+
+SERVE_CFG = dict(img_h=64, img_w=64, k_per_tile=64)
+SERVE_KW = dict(n_levels=2, max_batch=4, pipeline_depth=2)
+
+
+def _serve_one_device(dev, inputs) -> dict:
+    import torch_ranks as TR
+
+    with RenderServer(TR._model(inputs, "s.params."), GSConfig(**SERVE_CFG), device=dev, **SERVE_KW) as srv:
+        return TR.serve_scenario(srv, inputs, "s.")
+
+
+def test_mesh_server_at_world_one_over_nccl_is_bitwise_the_one_device_server(nccl_world_one):
+    """``RenderServer(mesh=(1, 1))`` over NCCL (the level broadcast, the
+    model and data all-gathers over groups of one, the gloo descriptors)
+    serves batched misses, cache hits, partial-hit strips and the rows
+    ``add_timestep(changed=...)`` dirties bit for bit as the one-device
+    server on the card, through both forward kernels."""
+    import torch_ranks as TR
+
+    mesh = nccl_world_one
+    inputs = _serve_inputs()
+    want = _serve_one_device(mesh.device, inputs)
+    before = (gp_ops.launch_count.n, tr_ops.launch_count.n)
+    with RenderServer(TR._model(inputs, "s.params."), GSConfig(**SERVE_CFG), mesh=mesh, **SERVE_KW) as srv:
+        got = TR.serve_scenario(srv, inputs, "s.")
+        assert srv.report()["mesh"]["control_sends"] > 0
+    assert gp_ops.launch_count.n > before[0] and tr_ops.launch_count.n > before[1]
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert got["counts"][2] >= 2  # partial hits went through strips
+
+
+def test_mesh_server_across_cards_over_nccl_is_bitwise_the_one_device_server(cuda_device, tmp_path):
+    """(2, 1) over NCCL with one rank per card: each micro-batch's views
+    split over the two data ranks, and the frames equal the one-device
+    server's bit for bit."""
+    import torch_ranks as TR
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices for serving across cards, found {n}")
+    inputs = _serve_inputs()
+    want = _serve_one_device(cuda_device, inputs)
+    ranks = TR.spawn([dict(kind="serve", name="s", mesh=[2, 1], cfg=SERVE_CFG, server=SERVE_KW, inputs="s.")], 2,
+                     inputs, tmp_path, device="cuda")
+    assert int(ranks[1]["s/followed"]) == 1
+    for k, v in want.items():
+        if k != "buckets":  # multiples of the data axis on the mesh
+            np.testing.assert_array_equal(ranks[0][f"s/{k}"], v, err_msg=k)
+    np.testing.assert_array_equal(ranks[0]["s/buckets"], [2, 4])
+
 
 # the JAX flash-attention kernel test's sweep, (B, S, Skv, H, Hkv, hd, causal,
 # window), with q_offset = Skv - S; then Skv 9000, where the JAX wrapper

@@ -1,5 +1,6 @@
 """Spawned gloo ranks for the PyTorch port's multi-rank parity tests
-(``tests/test_torch_sharding.py``, ``tests/test_torch_train_ranks.py``).
+(``tests/test_torch_sharding.py``, ``tests/test_torch_train_ranks.py``,
+``tests/test_torch_serve_ranks.py``).
 
 ``spawn(tasks, world, inputs, tmp)`` starts ``world`` processes of this file,
 one per rank. They meet through a ``file://`` store under ``tmp`` (no fixed
@@ -7,6 +8,9 @@ port: several pytest workers share the host), run every task in order on
 their own (data, model) mesh, and each writes its outputs to
 ``rank<r>.npz``. Every wait has a timeout, so a hang fails the test instead
 of stalling the run. The worker imports torch and the port only.
+``start`` and ``finish`` split ``spawn`` so that several runs go at once;
+``finish(..., check=False)`` returns every rank's exit code and output
+instead of asserting that all exited 0.
 
 A task is a dict with a ``kind`` (a function of this module), a ``name``
 that prefixes its outputs, a ``mesh`` [data, model] and its own keys.
@@ -17,6 +21,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +34,11 @@ def spawn(tasks: list[dict], world: int, inputs: dict, tmp: Path, timeout_s: flo
           device: str = "cpu") -> list[dict]:
     """Run ``tasks`` on ``world`` ranks: gloo on the CPU, or NCCL with one
     rank per card (``device="cuda"``); returns each rank's outputs."""
+    return finish(start(tasks, world, inputs, tmp, device), timeout_s)
+
+
+def start(tasks: list[dict], world: int, inputs: dict, tmp: Path, device: str = "cpu") -> tuple:
+    """Start the ``world`` rank processes of a run; returns its handle."""
     tmp.mkdir(parents=True, exist_ok=True)
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "tasks.json").write_text(json.dumps({"world": world, "tasks": tasks, "device": device}))
@@ -36,6 +46,13 @@ def spawn(tasks: list[dict], world: int, inputs: dict, tmp: Path, timeout_s: flo
     procs = [subprocess.Popen([sys.executable, __file__, str(tmp), str(r)], cwd=REPO, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
+    return tmp, procs
+
+
+def finish(run: tuple, timeout_s: float = RANK_TIMEOUT_S, check: bool = True):
+    """Wait for a started run. With ``check``, assert that every rank exited
+    0 and return each rank's outputs; else return (exit codes, outputs)."""
+    tmp, procs = run
     logs = []
     try:
         for p in procs:
@@ -45,9 +62,11 @@ def spawn(tasks: list[dict], world: int, inputs: dict, tmp: Path, timeout_s: flo
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    if not check:
+        return [p.returncode for p in procs], logs
     for r, p in enumerate(procs):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" + logs[r][-4000:]
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(len(procs))]
 
 
 # ------------------------------------------------------------------ worker
@@ -158,6 +177,110 @@ def densify(mesh, task, inp) -> dict:
     back = restore_checkpoint(task["ckpt"], int(new.step), new, mesh=mesh)
     return {**flat_state(new, "shard."), **flat_state(gather_state(st, mesh), "gathered."),
             **flat_state(back, "restored."), "report": np.asarray(tuple(rep))}
+
+
+def _model(inp: dict, prefix: str):
+    from repro_torch.core import gaussians as G
+
+    return G.GaussianModel(*[inp[f"{prefix}{f}"] for f in G.GaussianModel._fields])
+
+
+def serve_scenario(srv, inp: dict, pre: str) -> dict:
+    """The lead's requests, in the order the JAX oracle makes them: every
+    camera once (batched misses at both levels), every camera again (cache
+    hits), two after ``invalidate(rows={1})`` (partial hits: strips), two
+    after ``add_timestep(changed=...)`` (the dirty rows re-render). Returns
+    the frames of each round and the server's counts."""
+    from repro_torch.core.projection import Camera
+
+    cams = [Camera(*[inp[f"{pre}cams.{f}"][i] for f in Camera._fields]) for i in range(len(inp[f"{pre}cams.fx"]))]
+    out = {}
+
+    def serve(name, group):
+        futs = [srv.submit(c) for c in group]
+        srv.run()
+        out[f"frames.{name}"] = np.stack([f.result() for f in futs])
+
+    serve("miss", cams)
+    serve("hit", cams)
+    srv.invalidate(0, rows={1})
+    serve("partial", [cams[0], cams[-1]])
+    srv.add_timestep(0, _model(inp, f"{pre}new."), changed=inp[f"{pre}changed"])
+    serve("changed", cams[:2])
+    rep = srv.report()
+    out["counts"] = np.asarray([rep["completed"], rep["tiles"]["full_hits"], rep["tiles"]["partial_hits"],
+                                rep["tiles"]["frame_misses"], rep["tiles"]["rows_rendered_partial"],
+                                rep["render"]["calls"], *rep["lod"]["requests_per_level"]])
+    out["buckets"] = np.asarray(srv.batcher.buckets)
+    return out
+
+
+def serve(mesh, task, inp) -> dict:
+    """``RenderServer(mesh=...)``: the lead runs :func:`serve_scenario` and
+    closes, the followers serve until it does; with ``one_device`` the lead
+    then runs the same requests through a ``mesh=None`` server. With
+    ``max_batches`` the lead only reads each such server's buckets."""
+    from repro_torch.core.config import GSConfig
+    from repro_torch.serve_gs import RenderServer
+
+    cfg, pre = GSConfig(**task["cfg"]), task["inputs"]
+    params = _model(inp, f"{pre}params.")
+    out = {}
+    for mb in task.get("max_batches", []):
+        with RenderServer(params, cfg, mesh=mesh, **dict(task["server"], max_batch=mb)) as srv:
+            if srv.is_lead:
+                out[f"buckets.{mb}"] = np.asarray(srv.batcher.buckets)
+            else:
+                srv.serve_follower()
+    with RenderServer(params, cfg, mesh=mesh, **task["server"]) as srv:
+        if not srv.is_lead:
+            srv.serve_follower()
+            return {**out, "followed": np.asarray(1)}
+        out.update(serve_scenario(srv, inp, pre))
+        out["mesh_report"] = np.asarray(json.dumps(srv.report()["mesh"]))
+    if task.get("one_device"):
+        with RenderServer(params, cfg, device=mesh.device, **task["server"]) as srv:
+            out.update({f"one_device.{k}": v for k, v in serve_scenario(srv, inp, pre).items()})
+    return out
+
+
+def serve_refuses(mesh, task, inp) -> dict:
+    """A model whose row count does not divide by the model axis: every
+    rank's constructor raises ValueError; returns its message."""
+    from repro_torch.core.config import GSConfig
+    from repro_torch.serve_gs import RenderServer
+
+    try:
+        RenderServer(_model(inp, f"{task['inputs']}params."), GSConfig(**task["cfg"]), mesh=mesh, **task["server"])
+    except ValueError as e:
+        return {"error": np.asarray(str(e))}
+    raise AssertionError("RenderServer accepted a model that does not split over the model axis")
+
+
+def serve_abort(mesh, task, inp) -> dict:
+    """The lead fails mid-serve: inside ``with`` (``__exit__`` sends the
+    abort op) or outside it (the process dies with its control group). The
+    followers must raise, not wait: their rank exits non-zero."""
+    from repro_torch.core.config import GSConfig
+    from repro_torch.core.projection import Camera
+    from repro_torch.serve_gs import RenderServer
+
+    pre = task["inputs"]
+    srv = RenderServer(_model(inp, f"{pre}params."), GSConfig(**task["cfg"]), mesh=mesh, **task["server"])
+    if not srv.is_lead:
+        t0 = time.perf_counter()
+        try:
+            srv.serve_follower()
+        finally:
+            print(f"follower served for {time.perf_counter() - t0:.3f} s", flush=True)
+        return {"followed": np.asarray(1)}
+    cam = Camera(*[inp[f"{pre}cams.{f}"][0] for f in Camera._fields])
+    if task["inside_with"]:
+        with srv:
+            srv.submit(cam).result()
+            raise RuntimeError("the lead fails mid-serve")
+    srv.submit(cam).result()
+    raise RuntimeError("the lead fails mid-serve, outside a with block")
 
 
 def main(tmp: str, rank: int) -> None:
