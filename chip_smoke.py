@@ -3,8 +3,9 @@
 its plain PyTorch version on the card, time both, serve a 4M-Gaussian
 Kingsnake scene at 512 px through the port's ``RenderServer``, on one
 device and on a mesh of ranks over NCCL, train the same scene for a few
-steps through ``GSTrainer``, on one device and on a mesh of ranks, then
-prefill and decode
+steps through ``GSTrainer``, on one device and on a mesh of ranks, stream
+a time-varying Miranda volume through the in situ trainer, its temporal
+store and a time-scrubbing server, then prefill and decode
 the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
@@ -69,6 +70,21 @@ Phases, in order (any failure exits non-zero):
      with two or more cards, (1, 2) and (1, 4) in both modes over NCCL
      with one rank per card, 8 steps each, the losses held to the
      one-device trainer at rtol 1e-5, step p50 beside its;
+  5c. in situ: ``InsituTrainer`` over the Miranda growth stream (4
+     timesteps of a 256^3 field; capacity 1.5x the first extraction) at
+     ``paper_gs_config(512)`` with densification off, 8 orbit views
+     ray-marched on the card per timestep, 100 cold and 20 warm steps, a
+     temporal store with asynchronous writes, then the in situ CLI's scrub
+     and live-replay smokes on the card at depth 2, with the launch
+     counters zeroed just before and read just after; each timestep's
+     extraction, reseed and wall time split (from the trace ring), step ms
+     p50 cold and warm beside phase 5's, the busy share of one warm step,
+     the store's stats and peak memory; it fails unless the train step saw
+     one shape signature, the scrubbed frames are distinct with no new
+     miss on replay, a small run (miranda at 32^3, 32 px, 2 timesteps) on
+     the card matches the CPU path (first loss rtol 1e-5, the rest 1e-3,
+     the same reseeded slots), and the world-1 NCCL mesh is bitwise the one
+     device over 2 timesteps of the stream;
   7. lm: the attention kernel against its plain version (the JAX kernel
      test's sweep, Skv 9000, a 1024-key window and a ragged long case at
      hd 128, each in float32 on the CUDA-core kernel and in bfloat16 on the
@@ -88,7 +104,7 @@ Phases, in order (any failure exits non-zero):
      kernel's main path: training for the splatting kernels, the LM prefill
      for attention; ``launches_by_path`` with every path's own counts,
      ``serve_ranks`` the mesh server of phase 4b, ``ranks`` the sharded fits
-     of phase 5b) and
+     of phase 5b, ``insitu`` the stream, scrub and replay of phase 5c) and
      the final status line.
 """
 from __future__ import annotations
@@ -776,6 +792,185 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
             out["multi_card"][f"{mode}_1x{n}"] = {**got, "world1_losses": want, "world1_step_ms": world1_ms,
                                                   "p50_ms": p50, "world1_p50_ms": p50_1}
     return out
+
+
+INSITU_DIR = ROOT / "build" / "repro_torch_insitu"
+INSITU_STREAM = dict(dataset="miranda", n_timesteps=4, res=256, t1=0.3)
+INSITU_COLD, INSITU_WARM, INSITU_VIEWS = 100, 20, 8
+INSITU_SMALL = dict(img_h=32, img_w=32, batch_size=2, k_per_tile=128, max_steps=10, densify_from=10**9,
+                    opacity_reset_interval=10**9)
+
+
+def insitu_phase(dev, card: str, counters: dict, res: int, step_ms_4m: float) -> dict:
+    """In situ at full width, reduced scale: ``InsituTrainer`` over the
+    Miranda growth stream (4 timesteps of a 256^3 field, t in [0, 0.3]) at
+    ``paper_gs_config(res)`` with densification off, 8 orbit views
+    ray-marched on the card per timestep, 100 cold and 20 warm steps, a
+    temporal store with asynchronous writes, then the CLI's scrub and live
+    replay smokes on the card at pipeline depth 2. The launch counters are
+    zeroed just before and read just after. Then the gates: one shape
+    signature, distinct scrubbed frames and a replay with no new miss; a
+    small run (miranda at res 32, 32 px, K 128, batch 2, 2 timesteps of 3
+    cold and 2 warm steps) on the card against the CPU path on the same
+    ground truth; and the world-1 NCCL mesh (phases 4b and 5b's group)
+    bitwise equal to one device over 2 timesteps of the stream, 10 cold and
+    5 warm steps. Returns the launch counts of the run, the scrub and the
+    replay."""
+    import shutil
+
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.core.config import GSConfig
+    from repro_torch.insitu import InsituTrainer, TemporalCheckpointStore
+    from repro_torch.launch.insitu import live_replay_smoke, scrub_smoke
+    from repro_torch.launch.mesh import make_gs_mesh
+    from repro_torch.obs import Obs
+    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.volume.timevary import synthetic_stream
+
+    shutil.rmtree(INSITU_DIR, ignore_errors=True)
+    INSITU_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    vols = list(synthetic_stream(**INSITU_STREAM))
+    log(f"insitu: stream {INSITU_STREAM}: {len(vols)} fields generated on the host in "
+        f"{time.perf_counter() - t0:.2f} s (the simulation's side, outside the trainer)")
+    n_t = len(vols)
+    cfg = paper_gs_config(res, densify_from=10**9, opacity_reset_interval=10**9,
+                          max_steps=INSITU_COLD + INSITU_WARM * (n_t - 1))
+    spacing = 2.0 * vols[0].extent / (INSITU_STREAM["res"] - 1)
+    kw = dict(n_views=INSITU_VIEWS, max_points=None, init_scale=spacing, radius=3.0, seed=0)
+    log(f"insitu: cut to size: widths are the paper's ({res} px, {cfg.tile_h}x{cfg.tile_w} tiles, K "
+        f"{cfg.k_per_tile}, binning {cfg.binning}, batch {cfg.batch_size}, lambda_dssim {cfg.lambda_dssim}); scale is "
+        f"what extraction gives at a {INSITU_STREAM['res']}^3 field the host generates in seconds (not the paper's "
+        f"18M-point Miranda), {n_t} timesteps, {INSITU_VIEWS} views, {INSITU_COLD} cold and {INSITU_WARM} warm steps")
+
+    trainer = InsituTrainer(cfg, device=dev, cold_steps=INSITU_COLD, warm_steps=INSITU_WARM,
+                            obs=Obs(trace=True), verbose=True, **kw)
+    gt_s, last = [], []
+    make_dataset = trainer._dataset
+
+    def timed_dataset(vol):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = make_dataset(vol)
+        torch.cuda.synchronize()
+        gt_s.append(time.perf_counter() - t)
+        last[:] = [d]
+        return d
+
+    trainer._dataset = timed_dataset
+    store = TemporalCheckpointStore(str(INSITU_DIR / "seq"), keyframe_interval=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    reports = trainer.run(vols, store=store)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    scrub = scrub_smoke(store, cfg, n_scrub=3, pipeline_depth=2, device=dev)
+    replay = live_replay_smoke(store, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: c.n for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    stats = store.stats()
+    store.close()
+
+    # where each timestep's wall time goes, from the trace ring (one request id per timestep)
+    by_rid: dict = {}
+    t_of = {}
+    for s in trainer.obs.trace.spans():
+        by_rid.setdefault(s.rid, {}).setdefault(s.name, 0.0)
+        by_rid[s.rid][s.name] += s.dur
+        if s.name == "extract":
+            t_of[s.rid] = s.meta["t_index"]
+    for rid, names in by_rid.items():
+        t = t_of[rid]
+        r = reports[t]
+        parts = {"extraction": names.get("extract", 0.0), "reseed": names.get("reseed", 0.0), "gt_views": gt_s[t],
+                 "fit": names.get("fit", 0.0), "eval": names.get("eval", 0.0), "ckpt_append": names.get("ckpt", 0.0)}
+        parts["other"] = r.wall_s - sum(v for k, v in parts.items() if k != "ckpt_append")
+        log(f"insitu t={t} {r.mode} ({card}): {r.steps} steps, {r.n_extracted} points extracted, capacity "
+            f"{trainer.capacity}, {r.n_reseeded} reseeded, changed slots "
+            f"{len(r.changed_slots) if r.changed_slots is not None else None}, PSNR {r.psnr_before:.4f} -> "
+            f"{r.psnr_after:.4f} dB, loss {r.loss_final:.6f}; wall_s {r.wall_s:.4f} = "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items() if k != "ckpt_append")
+            + f"; then checkpoint append {parts['ckpt_append']:.4f} s")
+    cold_ms = trainer.step_ms[:reports[0].steps]
+    warm_ms = trainer.step_ms[reports[0].steps:]
+    cold_p50, warm_p50 = float(np.median(cold_ms)), float(np.median(warm_ms))
+    log(f"insitu ({card}): {sum(r.steps for r in reports)} steps at {trainer.capacity} Gaussians, {res} px, batch "
+        f"{cfg.batch_size}: cold step ms p50 {cold_p50:.3f} (min {min(cold_ms):.3f}, max {max(cold_ms):.3f}), warm "
+        f"step ms p50 {warm_p50:.3f} (min {min(warm_ms):.3f}, max {max(warm_ms):.3f}); phase 5's step at 4M Gaussians "
+        f"p50 {step_ms_4m:.3f} ms; run {run_s:.3f} s; shape signatures {trainer.n_traces}; peak above start {peak} B")
+    log(f"insitu store ({card}): {stats}")
+    log(f"insitu scrub on the card, depth 2: timesteps {scrub['timesteps']}, frame {scrub['frame_shape']}, "
+        f"max |frame delta| {scrub['max_abs_frame_delta']}, distinct {scrub['frames_distinct']}, replay identical "
+        f"{scrub['replay_identical']}, replay hits {scrub['replay_cache_hits']}, new misses "
+        f"{scrub['replay_new_misses']}, pipeline {scrub['pipeline']}")
+    log(f"insitu live replay on the card: {replay['updates']} updates, invalidations {replay['invalidations']} "
+        f"(partial {replay['partial_invalidations']}, full {replay['full_invalidations']})")
+    log(f"insitu launches (counters zeroed just before the run and read after the scrub and replay): {launches}")
+    steps = sum(r.steps for r in reports)
+    if trainer.n_traces != 1:
+        raise SystemExit(f"insitu: the train step saw {trainer.n_traces} shape signatures, want 1")
+    if not scrub["frames_distinct"] or scrub["replay_new_misses"]:
+        raise SystemExit(f"insitu: scrub frames distinct {scrub['frames_distinct']}, replay new misses "
+                         f"{scrub['replay_new_misses']}")
+    if launches["tile_raster_bwd"] != cfg.batch_size * steps or launches["gsproject"] < cfg.batch_size * steps + 2 * n_t \
+            or launches["tile_raster_fwd"] < cfg.batch_size * steps + 2 * n_t or launches["flash_attention"]:
+        raise SystemExit(f"insitu: launches {launches}, want {cfg.batch_size} of each splatting kernel per step "
+                         "(plus eval views and scrubbed frames forward) and no attention")
+
+    # the busy share of one warm step at the last timestep's state
+    cams_b, gt_b = next(iter(last[0].batches(cfg.batch_size, steps=1)))
+    profile_step(lambda: trainer._step_fn(trainer.state, cams_b, gt_b), warm_p50, label="in situ warm step")
+    del trainer, last
+
+    # the small run, on the card and on the CPU path, on the card's ray-marched ground truth
+    small = GSConfig(**INSITU_SMALL)
+    small_kw = dict(cold_steps=3, warm_steps=2, n_views=4, max_points=600, n_steps_raymarch=32, init_scale=0.06,
+                    seed=0, gt_cache_dir=str(INSITU_DIR / "gt_small"))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        tr = InsituTrainer(small, device=d, **small_kw)
+        tr.run(synthetic_stream("miranda", 2, res=32, t1=0.15))
+        runs.append(tr)
+    card_tr, cpu_tr = runs
+    lk, lc = np.asarray(card_tr.step_losses), np.asarray(cpu_tr.step_losses)
+    same_slots = [s.tolist() for s in card_tr.reseed_log] == [s.tolist() for s in cpu_tr.reseed_log]
+    first_ok = abs(lk[0] - lc[0]) <= 1e-5 * abs(lc[0])
+    rest_ok = np.allclose(lk, lc, rtol=1e-3, atol=0)
+    log(f"insitu small run (miranda 32^3, 32 px, K 128, batch 2, 2 timesteps of 3 cold and 2 warm steps), card vs "
+        f"CPU path: losses {lk.tolist()} vs {lc.tolist()}, max rel err {float(np.max(np.abs(lk - lc) / np.abs(lc))):.3e} "
+        f"(first step within rtol 1e-5: {first_ok}, all within rtol 1e-3: {rest_ok}); reseeded "
+        f"{[s.size for s in card_tr.reseed_log]} vs {[s.size for s in cpu_tr.reseed_log]}, same slots {same_slots}")
+    if not (first_ok and rest_ok and same_slots and card_tr.n_traces == 1):
+        raise SystemExit("insitu: the small run on the card disagrees with the CPU path")
+    del runs, card_tr, cpu_tr
+
+    # the world-1 NCCL mesh against one device: 2 timesteps of the stream, bitwise
+    cfg2 = dataclasses.replace(cfg, max_steps=15)
+    mesh = make_gs_mesh(1, 1, device=dev)
+    pair = []
+    for m in (None, mesh):
+        tr = InsituTrainer(cfg2, m, device=dev, cold_steps=10, warm_steps=5, **kw)
+        tr.run(vols[:2])
+        pair.append(tr)
+    one, w1 = pair
+    same = (one.step_losses == w1.step_losses and one.capacity == w1.capacity
+            and [s.tolist() for s in one.reseed_log] == [s.tolist() for s in w1.reseed_log]
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(one.state), tree_leaves(w1.state))))
+    log(f"insitu world-1 NCCL mesh vs one device ({card}): 2 timesteps, 10 cold and 5 warm steps at "
+        f"{one.capacity} Gaussians: losses {[round(x, 7) for x in w1.step_losses]}; reseeded "
+        f"{[s.size for s in w1.reseed_log]}; bitwise equal (losses, reseeded slots, parameters, Adam moments, "
+        f"densify statistics): {same}; step ms p50 {float(np.median(w1.step_ms)):.3f} vs one device "
+        f"{float(np.median(one.step_ms)):.3f}")
+    if not same:
+        raise SystemExit("insitu: the world-1 mesh trainer is not bitwise the one-device trainer")
+    del pair, one, w1
+    shutil.rmtree(INSITU_DIR, ignore_errors=True)
+    return launches
 
 
 SERVE_MESHES = ((2, 1), (4, 1), (1, 2), (1, 4))  # across cards: data-parallel, then model-sharded
@@ -1495,7 +1690,10 @@ def main(argv=None) -> int:
         f"{ranks['one_device_step_ms']} ms, phase 5's one-device p50 {float(np.median(step_ms)):.3f} ms; launches "
         f"{ranks_launches}")
     del data
-    torch.distributed.destroy_process_group()  # the world-1 group of phases 4b and 5b
+
+    # ---------------------------------------------------------- 5c. in situ
+    insitu_launches = insitu_phase(dev, card, counters, args.res, float(np.median(step_ms)))
+    torch.distributed.destroy_process_group()  # the world-1 group of phases 4b, 5b and 5c
 
     # ---------------------------------------------------------- 7. lm
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
@@ -1506,7 +1704,7 @@ def main(argv=None) -> int:
 
     def by_path(i: int, name: str) -> dict:
         return {"serve": serve_launches[i], "serve_ranks": serve_ranks["launches"][name],
-                "train": train_launches[i], "ranks": ranks_launches[name],
+                "train": train_launches[i], "ranks": ranks_launches[name], "insitu": insitu_launches[name],
                 "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name]}
 
     kernels = [

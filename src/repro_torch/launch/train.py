@@ -180,9 +180,10 @@ class GSTrainer:
 
 
 def build_dataset(name: str, *, volume_res: int, n_views: int, img_h: int, img_w: int,
-                  max_points: int | None, cache_dir: str | None = "experiments/gt_cache", device="cpu"):
+                  max_points: int | None, cache_dir: str | None = "experiments/gt_cache", device="cuda"):
     """Volume, isosurface points and colors, and the GT views (rendered on
-    ``device``; cached under the JAX package's file names)."""
+    ``device``, by default the card; cached under the JAX package's file
+    names)."""
     ds = DATASETS[name]
     vol = getattr(VD, ds.volume)(res=volume_res)
     pts, _, cols = extract_isosurface_points(vol, max_points=max_points)

@@ -2,7 +2,9 @@
 ``examples/serve_gs_quickstart_torch.py`` serves a synthetic scene to PPM
 frames, and ``examples/render_novel_views_torch.py`` renders a novel orbit
 from a checkpoint the port's training CLI wrote, each at 32 px (as
-``tests/test_cli_drivers.py`` runs the JAX examples)."""
+``tests/test_cli_drivers.py`` runs the JAX examples); and
+``examples/insitu_timeseries_torch.py --smoke`` streams two timesteps into
+the in situ trainer and scrubs them."""
 import json
 import os
 import subprocess
@@ -55,3 +57,11 @@ def test_train_then_render_novel_views_mirror(tmp_path):
     for f in files:
         img = _read_ppm(f)
         assert img.shape == (32, 32, 3) and img.max() > 0
+
+
+def test_insitu_timeseries_mirror_streams_and_scrubs(tmp_path):
+    stdout = _run([str(REPO / "examples" / "insitu_timeseries_torch.py"), "--device", "cpu", "--smoke"], tmp_path)
+    assert "train-step shape signatures across the sequence: 1" in stdout
+    assert "[insitu] t=0 cold" in stdout and "[insitu] t=1 warm" in stdout
+    frames = [line for line in stdout.splitlines() if line.strip().startswith("t=")]
+    assert len(frames) == 2 and all("frame (32, 32, 3)" in line for line in frames)

@@ -4,8 +4,10 @@ step through the three splatting kernels against the same step on the CPU,
 the sharded train step on a world-1 NCCL mesh bitwise against the
 one-device step (and across cards where there are two or more), the mesh
 render server on a world-1 NCCL mesh (and on (2, 1) across cards) bitwise
-against the one-device server, and the LM prefill step through the
-attention kernel against the CPU.
+against the one-device server, the LM prefill step through the
+attention kernel against the CPU, and a small in situ run (the warm-start
+trainer over two timesteps) against the CPU and, on a world-1 NCCL mesh,
+bitwise against one device.
 
 Every test here needs a CUDA device and skips without one (the decision is
 made inside the ``cuda_device`` fixture, so every xdist worker collects the
@@ -715,3 +717,60 @@ def test_smoke_prefill_on_card_matches_cpu(cuda_device, arch):
     assert fa_ops.launch_count.n == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
 
+
+
+INSITU_CFG = dict(img_h=32, img_w=32, batch_size=2, k_per_tile=128, max_steps=10, densify_from=10**9,
+                  opacity_reset_interval=10**9)
+INSITU_KW = dict(cold_steps=3, warm_steps=2, n_views=4, max_points=600, n_steps_raymarch=32, init_scale=0.06, seed=0)
+
+
+def test_insitu_run_on_card_matches_cpu(cuda_device, tmp_path):
+    """The small in situ run (miranda at res 32, 32 px, K 128, batch 2, 2
+    timesteps of 3 cold and 2 warm steps) on the card and on the CPU path,
+    on the card's ray-marched ground truth (cached, so both train on the same
+    images): the first step's loss within rtol 1e-5, every step's within
+    rtol 1e-3 (the multi-step tolerance of the CPU parity tests), the same
+    reseeded slots, one shape signature, and the card's run through the
+    kernels (2 launches of each splatting kernel per step, plus the eval
+    views' forwards)."""
+    from repro_torch.insitu import InsituTrainer
+    from repro_torch.volume.timevary import synthetic_stream
+
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        counts = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+        tr = InsituTrainer(GSConfig(**INSITU_CFG), device=dev, gt_cache_dir=str(tmp_path), **INSITU_KW)
+        reports = tr.run(synthetic_stream("miranda", 2, res=32, t1=0.15))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            steps = sum(r.steps for r in reports)
+            assert (gp_ops.launch_count.n - counts[0], tr_ops.launch_count.n - counts[1],
+                    tr_ops.bwd_launch_count.n - counts[2]) == (2 * steps + 4, 2 * steps + 4, 2 * steps)
+        runs[dev.type] = tr
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card.n_traces == cpu.n_traces == 1
+    np.testing.assert_allclose(card.step_losses[0], cpu.step_losses[0], rtol=1e-5)
+    np.testing.assert_allclose(card.step_losses, cpu.step_losses, rtol=1e-3)
+    assert [s.tolist() for s in card.reseed_log] == [s.tolist() for s in cpu.reseed_log]
+    assert card.reseed_log[0].size > 0
+
+
+def test_insitu_trainer_at_world_one_over_nccl_is_bitwise_one_device(nccl_world_one):
+    """``InsituTrainer`` on a world-1 NCCL mesh (every rank gathers the full
+    state to reseed it and keeps its shard) against the one-device trainer
+    over the same stream: losses, reseeded slots and the final state bit for
+    bit."""
+    from repro_torch.insitu import InsituTrainer
+    from repro_torch.volume.timevary import synthetic_stream
+
+    mesh = nccl_world_one
+    out = []
+    for m in (None, mesh):
+        tr = InsituTrainer(GSConfig(**INSITU_CFG), m, device=mesh.device, **INSITU_KW)
+        tr.run(synthetic_stream("miranda", 2, res=32, t1=0.15))
+        out.append(tr)
+    one, w1 = out
+    assert one.step_losses == w1.step_losses
+    assert [s.tolist() for s in one.reseed_log] == [s.tolist() for s in w1.reseed_log]
+    for a, b in zip(tree_leaves(one.state), tree_leaves(w1.state)):
+        assert torch.equal(a, b)

@@ -1,6 +1,6 @@
 """Spawned gloo ranks for the PyTorch port's multi-rank parity tests
 (``tests/test_torch_sharding.py``, ``tests/test_torch_train_ranks.py``,
-``tests/test_torch_serve_ranks.py``).
+``tests/test_torch_serve_ranks.py``, ``tests/test_torch_insitu_ranks.py``).
 
 ``spawn(tasks, world, inputs, tmp)`` starts ``world`` processes of this file,
 one per rank. They meet through a ``file://`` store under ``tmp`` (no fixed
@@ -281,6 +281,27 @@ def serve_abort(mesh, task, inp) -> dict:
             raise RuntimeError("the lead fails mid-serve")
     srv.submit(cam).result()
     raise RuntimeError("the lead fails mid-serve, outside a with block")
+
+
+def insitu(mesh, task, inp) -> dict:
+    """``InsituTrainer(mesh=...)`` over a synthetic stream (``task["stream"]``:
+    ``synthetic_stream``'s arguments); rank 0 keeps a temporal store under
+    ``task["store"]``. Every rank returns its step losses, the slots each
+    timestep reseeded and its reports' numbers."""
+    from repro_torch.core.config import GSConfig
+    from repro_torch.insitu import InsituTrainer, TemporalCheckpointStore
+    from repro_torch.volume.timevary import synthetic_stream
+
+    tr = InsituTrainer(GSConfig(**task["cfg"]), mesh, **task["trainer"])
+    store = TemporalCheckpointStore(task["store"], keyframe_interval=2) if mesh.rank == 0 else None
+    reports = tr.run(synthetic_stream(**task["stream"]), store=store)
+    if store is not None:
+        store.close()
+    out = {"losses": np.asarray(tr.step_losses), "n_traces": np.asarray(tr.n_traces),
+           "reports": np.asarray([[r.n_reseeded, r.loss_final, r.psnr_before, r.psnr_after] for r in reports]),
+           "changed": np.asarray([len(r.changed_slots or ()) for r in reports])}
+    out.update({f"reseed.{i}": s for i, s in enumerate(tr.reseed_log)})
+    return out
 
 
 def main(tmp: str, rank: int) -> None:
