@@ -5,7 +5,8 @@ Kingsnake scene at 512 px through the port's ``RenderServer``, on one
 device and on a mesh of ranks over NCCL, train the same scene for a few
 steps through ``GSTrainer``, on one device and on a mesh of ranks, stream
 a time-varying Miranda volume through the in situ trainer, its temporal
-store and a time-scrubbing server, then prefill and decode
+store and a time-scrubbing server, serve both to TCP clients through the
+network frontend, then prefill and decode
 the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
@@ -85,6 +86,21 @@ Phases, in order (any failure exits non-zero):
      the card matches the CPU path (first loss rtol 1e-5, the rest 1e-3,
      the same reseeded slots), and the world-1 NCCL mesh is bitwise the one
      device over 2 timesteps of the stream;
+  5d. frontend: one ``SessionManager`` on the card (3 levels at keep 0.5,
+     max batch 8, depth 2, tile cache) with stream ``static`` = phase 4's
+     host model and stream ``timeline`` = phase 5c's temporal store; 8
+     clients x 8 requests (even clients orbit ``static``, odd clients scrub
+     ``timeline`` at a fixed pose) in process, then over TCP to a
+     ``GatewayThread`` on an ephemeral localhost port (queue limit 8, wave
+     per session 4, coalesce 2 ms, tiles8), the cache and metrics reset and
+     the launch counters zeroed before each lap; frames/s of both laps and
+     their ratio, client p50 and p99, payload bytes per frame by encoding
+     and raw fallbacks, the gateway's render/encode/write seconds, the busy
+     share of one wave of 8 new poses, each lap's launches and peak memory;
+     it fails unless every TCP frame is bitwise ``quantize_rgb8`` of the
+     in-process frame, the scrubbed timesteps are distinct, nothing is shed
+     and no protocol, request or engine error occurs, and both forward
+     kernels launch over TCP;
   7. lm: the attention kernel against its plain version (the JAX kernel
      test's sweep, Skv 9000, a 1024-key window and a ragged long case at
      hd 128, each in float32 on the CUDA-core kernel and in bfloat16 on the
@@ -104,7 +120,8 @@ Phases, in order (any failure exits non-zero):
      kernel's main path: training for the splatting kernels, the LM prefill
      for attention; ``launches_by_path`` with every path's own counts,
      ``serve_ranks`` the mesh server of phase 4b, ``ranks`` the sharded fits
-     of phase 5b, ``insitu`` the stream, scrub and replay of phase 5c) and
+     of phase 5b, ``insitu`` the stream, scrub and replay of phase 5c,
+     ``frontend`` the TCP lap of phase 5d) and
      the final status line.
 """
 from __future__ import annotations
@@ -969,8 +986,242 @@ def insitu_phase(dev, card: str, counters: dict, res: int, step_ms_4m: float) ->
     if not same:
         raise SystemExit("insitu: the world-1 mesh trainer is not bitwise the one-device trainer")
     del pair, one, w1
-    shutil.rmtree(INSITU_DIR, ignore_errors=True)
+    shutil.rmtree(INSITU_DIR / "gt_small", ignore_errors=True)  # the store stays for phase 5d
     return launches
+
+
+FRONTEND_CLIENTS, FRONTEND_REQUESTS, FRONTEND_WINDOW = 8, 8, 2  # benchmarks/frontend_load.py's defaults
+FRONTEND_GATEWAY = dict(queue_limit=8, wave_per_session=4, coalesce_ms=2.0)
+
+
+def frontend_phase(dev, card: str, host, cfg, counters: dict, store_dir: Path) -> dict:
+    """The network frontend on the card: one ``SessionManager`` (the serving
+    CLI's defaults: 3 levels at keep 0.5, max batch 8, depth 2, tile cache,
+    no retained frames) with stream ``static`` = phase 4's host model and
+    stream ``timeline`` = phase 5c's temporal store (through
+    ``timeline_stream``). The frontend load benchmark's trace (8 clients x 8
+    requests; even clients orbit ``static``, odd clients scrub ``timeline``
+    at a fixed pose) runs twice: in process (a wavefront of submits per
+    round, then ``run``), then over TCP from asyncio clients (tiles8
+    negotiated, 2 requests in flight each) to a ``GatewayThread`` on an
+    ephemeral localhost port. The cache and the metrics are reset and the
+    launch counters zeroed before each lap. Fails unless every TCP frame is
+    bitwise ``quantize_rgb8`` of the in-process frame of the same request,
+    the scrubbed timesteps are distinct, nothing is shed or fails, and both
+    forward kernels launch in the network lap. Returns that lap's launches."""
+    import asyncio
+    import shutil
+
+    from repro_torch.frontend import AsyncFrontendClient, Gateway, GatewayThread, SessionManager, quantize_rgb8
+    from repro_torch.insitu import TemporalCheckpointStore, timeline_stream
+    from repro_torch.obs import Obs
+    from repro_torch.serve_gs import make_clients
+    from repro_torch.serve_gs.server import _percentile
+    from repro_torch.volume.cameras import camera_slice, orbit_cameras
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    manager = SessionManager(cfg, obs=Obs(), device=dev, n_levels=3, keep_ratio=0.5, max_batch=8,
+                             cache_capacity=512, tile_cache=True, store_frames=False, pipeline_depth=2)
+    manager.register_static("static", host)
+    with TemporalCheckpointStore(str(store_dir)) as store:
+        info = timeline_stream(manager, "timeline", store)
+    server = manager.server
+    warm_s = manager.warmup()
+    n_t = len(info.timesteps)
+    log(f"frontend: streams {manager.describe()}; levels live {list(server.pyramid.live_counts)} (static); warmup "
+        f"{warm_s:.2f} s; gateway {FRONTEND_GATEWAY}, tiles8 negotiated, {FRONTEND_CLIENTS} clients x "
+        f"{FRONTEND_REQUESTS} requests, {FRONTEND_WINDOW} in flight each")
+
+    # the trace: (client, request) -> (stream, local timestep, camera)
+    orbits = make_clients(FRONTEND_CLIENTS, n_views=12, img_h=cfg.img_h, img_w=cfg.img_w, shared_orbit=False)
+    trace = []
+    for c, orbit in enumerate(orbits):
+        fixed = orbit.next_camera() if c % 2 else None
+        trace.append([(("static", 0, orbit.next_camera()) if c % 2 == 0 else
+                       ("timeline", info.timesteps[r % n_t], fixed)) for r in range(FRONTEND_REQUESTS)])
+    n_req = FRONTEND_CLIENTS * FRONTEND_REQUESTS
+
+    def reset_lap():
+        server.cache.drop(lambda k: True)
+        manager.obs.metrics.reset()
+
+    # ---- lap 1: in process
+    reset_lap()
+    for c_ in counters.values():
+        c_.n = 0
+    local, lat_local = {}, []
+    t0 = time.perf_counter()
+    for r in range(FRONTEND_REQUESTS):
+        wave = []
+        for c, reqs in enumerate(trace):
+            stream, t, cam = reqs[r]
+            wave.append(((c, r), server.submit(cam, timestep=manager.resolve(stream, t), client_id=c),
+                         time.perf_counter()))
+        server.run()
+        for key, fut, ts in wave:
+            local[key] = fut.result()
+            lat_local.append((time.perf_counter() - ts) * 1e3)
+    local_s = time.perf_counter() - t0
+    local_launches = {k: c_.n for k, c_ in counters.items()}
+    local_pipe = server.report()["pipeline"]
+    local_fps = n_req / local_s
+
+    # ---- lap 2: over TCP
+    gateway = Gateway(manager, port=0, **FRONTEND_GATEWAY)
+    gt = GatewayThread(gateway).start()
+    loop = asyncio.new_event_loop()
+    wire = {}  # encoding -> [frames, payload bytes, client decode s]
+
+    def count_payloads(cl):
+        decode = cl._decoder.decode
+
+        def counted(stream, meta, payload):
+            d0 = time.perf_counter()
+            out = decode(stream, meta, payload)
+            w = wire.setdefault(meta["encoding"], [0, 0, 0.0])
+            w[0] += 1
+            w[1] += len(payload)
+            w[2] += time.perf_counter() - d0
+            return out
+
+        cl._decoder.decode = counted
+
+    async def connect():
+        out = []
+        for _ in trace:
+            cl = AsyncFrontendClient("127.0.0.1", gt.port)
+            await cl.connect()
+            count_payloads(cl)
+            out.append(cl)
+        return out
+
+    async def one_client(cl, c, reqs, frames, lat, errors):
+        inflight = []
+
+        async def drain():
+            key, fut, ts = inflight.pop(0)
+            try:
+                frames[key] = await fut
+                lat.append((time.perf_counter() - ts) * 1e3)
+            except Exception as e:  # shed / remote error: counted and gated below
+                errors.append(repr(e))
+
+        for r, (stream, t, cam) in enumerate(reqs):
+            if len(inflight) >= FRONTEND_WINDOW:
+                await drain()
+            inflight.append(((c, r), await cl.submit_render(stream, cam, timestep=t), time.perf_counter()))
+        while inflight:
+            await drain()
+
+    async def run_lap(frames, lat, errors):
+        await asyncio.gather(*[one_client(cl, c, reqs, frames, lat, errors)
+                               for c, (cl, reqs) in enumerate(zip(clients, trace))])
+
+    clients = []
+    try:
+        clients[:] = loop.run_until_complete(asyncio.wait_for(connect(), 60))
+        protocols = {cl.protocol for cl in clients}
+        gateway.run_on_engine(reset_lap).result(timeout=60)
+        for c_ in counters.values():
+            c_.n = 0
+        net, lat_net, errors = {}, [], []
+        t0 = time.perf_counter()
+        loop.run_until_complete(asyncio.wait_for(run_lap(net, lat_net, errors), 300))
+        net_s = time.perf_counter() - t0
+        net_launches = {k: c_.n for k, c_ in counters.items()}
+        wire_lap = {e: tuple(v) for e, v in wire.items()}  # the lap's frames, before the profiled waves add theirs
+        net_pipe = gateway.run_on_engine(server.report).result(timeout=60)["pipeline"]
+        stats = loop.run_until_complete(asyncio.wait_for(clients[0].stats(), 60))
+        snap = manager.obs.metrics.snapshot()
+        net_fps = len(net) / net_s
+
+        # the busy share of one wave: 8 new level-0 poses of ``static``, one per client
+        calls = itertools.count()
+
+        async def wave_of_new_poses():
+            cams = orbit_cameras(FRONTEND_CLIENTS, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.05 + 1e-3 * next(calls))
+            await asyncio.gather(*[cl.render("static", camera_slice(cams, i)) for i, cl in enumerate(clients)])
+
+        def one_wave():
+            loop.run_until_complete(asyncio.wait_for(wave_of_new_poses(), 60))
+
+        one_wave()
+        wave_ms = []
+        for _ in range(3):
+            w0 = time.perf_counter()
+            one_wave()
+            wave_ms.append((time.perf_counter() - w0) * 1e3)
+        profile_step(one_wave, float(np.median(wave_ms)), label="frontend wave (8 new poses over TCP)")
+        gw_stats = loop.run_until_complete(asyncio.wait_for(clients[0].stats(), 60))["gateway"]
+        for cl in clients:
+            loop.run_until_complete(asyncio.wait_for(cl.close(), 60))
+    finally:
+        # the gateway's close waits for its connections to end: drop any the
+        # clients still hold (a failure above) before stopping it
+        for cl in clients:
+            if cl._writer is not None:
+                cl._writer.close()
+        loop.run_until_complete(asyncio.sleep(0.1))
+        gt.stop()
+        loop.close()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    gw = {k.split(".", 1)[1]: v for k, v in snap.items() if k.startswith("gateway.") and not isinstance(v, dict)}
+    enc = {}
+    for s in stats["sessions"].values():
+        for k, v in s["encoder"].items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                enc[k] = enc.get(k, 0) + v
+    lat_l, lat_n = sorted(lat_local), sorted(lat_net)
+    log(f"frontend in process ({card}): {n_req} requests, {local_fps:.2f} frames/s, p50 "
+        f"{_percentile(lat_l, 50):.3f} ms, p99 {_percentile(lat_l, 99):.3f} ms; launches {local_launches}; lap "
+        f"{local_s:.4f} s: dispatch {local_pipe['dispatch_s']} s, wait for the device {local_pipe['block_s']} s")
+    log(f"frontend over TCP ({card}): {len(net)} of {n_req} frames, {net_fps:.2f} frames/s "
+        f"({net_fps / local_fps:.3f}x in process), client-observed p50 {_percentile(lat_n, 50):.3f} ms, p99 "
+        f"{_percentile(lat_n, 99):.3f} ms; protocol {sorted(protocols)}; launches {net_launches}; lap {net_s:.4f} s: "
+        f"dispatch {net_pipe['dispatch_s']} s, wait for the device {net_pipe['block_s']} s (on the render thread)")
+    log(f"frontend wire: " + "; ".join(f"{e} {n} frames, {b / max(n, 1):.1f} payload B per frame, client decode "
+                                        f"{d * 1e3 / max(n, 1):.3f} ms per frame"
+                                        for e, (n, b, d) in sorted(wire_lap.items()))
+        + f"; gateway bytes_out {gw.get('bytes_out', 0)} ({gw.get('bytes_out', 0) / max(len(net), 1):.1f} B per frame "
+        f"with headers); raw_fallbacks {enc.get('raw_fallbacks', 0)}, tile frames {enc.get('tile_frames', 0)}, tiles "
+        f"shipped {enc.get('tiles_shipped', 0)} and reffed {enc.get('tiles_reffed', 0)} of {enc.get('tiles_total', 0)}; "
+        f"raw float32 frame {cfg.img_h * cfg.img_w * 3 * 4} B, RGB8 {cfg.img_h * cfg.img_w * 3} B")
+    log(f"frontend gateway ({card}): render_wait_s {gw.get('render_wait_s', 0.0):.4f}, encode_wait_s "
+        f"{gw.get('encode_wait_s', 0.0):.4f}, write_s {gw.get('write_s', 0.0):.4f} over {gw.get('waves', 0)} waves "
+        f"(lap wall {net_s:.4f} s); shed {gw.get('shed', 0)}, protocol_errors {gw.get('protocol_errors', 0)}, "
+        f"request_errors {gw.get('request_errors', 0)}, engine_errors {gw.get('engine_errors', 0)}, delivery_errors "
+        f"{gw.get('delivery_errors', 0)}, dropped_writes {gw.get('dropped_writes', 0)}; one wave of 8 new poses: "
+        f"wall {float(np.median(wave_ms)):.3f} ms (median of 3)")
+    log(f"frontend ({card}): peak above the phase's start {peak} B; phase {time.perf_counter() - t_phase:.1f} s")
+
+    bad = [key for key, f in local.items() if key not in net or not np.array_equal(net[key], quantize_rgb8(f))]
+    scrub_distinct = all(
+        len({net[(c, r)].tobytes() for r in range(min(n_t, FRONTEND_REQUESTS)) if (c, r) in net})
+        == min(n_t, FRONTEND_REQUESTS) for c in range(1, FRONTEND_CLIENTS, 2))
+    log(f"frontend gates: TCP frames bitwise quantize_rgb8(in-process frame) on {n_req - len(bad)} of {n_req}; "
+        f"scrubbed timesteps distinct per scrubbing client: {scrub_distinct}; client errors {errors[:3]}")
+    failures = [k for k in ("shed", "protocol_errors", "request_errors", "engine_errors", "delivery_errors",
+                            "dropped_writes") if gw.get(k, 0) or gw_stats[k]]
+    if errors or failures or len(net) != n_req:
+        raise SystemExit(f"frontend: {len(net)} of {n_req} frames over TCP, client errors {errors[:3]}, "
+                         f"gateway counters {failures}")
+    if bad:
+        raise SystemExit(f"frontend: {len(bad)} TCP frames differ from quantize_rgb8 of the in-process frame "
+                         f"(first {bad[:4]})")
+    if not scrub_distinct:
+        raise SystemExit("frontend: scrubbed timesteps gave equal frames")
+    if protocols != {2} or "tiles8" not in wire_lap:
+        raise SystemExit(f"frontend: tiles8 not negotiated (protocols {protocols}, encodings {sorted(wire_lap)})")
+    if not net_launches["gsproject"] or not net_launches["tile_raster_fwd"] or net_launches["tile_raster_bwd"] \
+            or net_launches["flash_attention"]:
+        raise SystemExit(f"frontend: launches over TCP {net_launches}: want both forward kernels, no backward "
+                         "and no attention")
+    shutil.rmtree(store_dir.parent, ignore_errors=True)
+    return net_launches
 
 
 SERVE_MESHES = ((2, 1), (4, 1), (1, 2), (1, 4))  # across cards: data-parallel, then model-sharded
@@ -1695,6 +1946,9 @@ def main(argv=None) -> int:
     insitu_launches = insitu_phase(dev, card, counters, args.res, float(np.median(step_ms)))
     torch.distributed.destroy_process_group()  # the world-1 group of phases 4b, 5b and 5c
 
+    # ---------------------------------------------------------- 5d. frontend
+    frontend_launches = frontend_phase(dev, card, host, cfg, counters, INSITU_DIR / "seq")
+
     # ---------------------------------------------------------- 7. lm
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
                       ["--arch", "qwen3-0.6b", "--device", "cuda", "--seed", str(args.seed)], counters)
@@ -1705,6 +1959,7 @@ def main(argv=None) -> int:
     def by_path(i: int, name: str) -> dict:
         return {"serve": serve_launches[i], "serve_ranks": serve_ranks["launches"][name],
                 "train": train_launches[i], "ranks": ranks_launches[name], "insitu": insitu_launches[name],
+                "frontend": frontend_launches[name],
                 "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name]}
 
     kernels = [

@@ -74,9 +74,7 @@ def timeline_stream(manager, stream_id: str, store: TemporalCheckpointStore, *, 
     manager's pool under ``stream_id``: remote clients then scrub it with
     ``scrub`` messages while other streams (static scenes, other runs)
     share the same device pool, micro-batcher, and frame cache. Returns the
-    registered ``StreamInfo``. It only delegates to
-    ``manager.register_timeline``; the port's network frontend, which
-    provides such a manager, is not written yet."""
+    registered ``StreamInfo``."""
     return manager.register_timeline(stream_id, store, timesteps=timesteps)
 
 

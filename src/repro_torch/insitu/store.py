@@ -51,6 +51,7 @@ import time
 
 import numpy as np
 
+from repro_torch.analysis import tsan
 from repro_torch.checkpoint.store import _leaf_to_host, restore_checkpoint, save_checkpoint
 from repro_torch.core import gaussians as G
 
@@ -119,10 +120,12 @@ class TemporalCheckpointStore:
         self._recon: dict[str, np.ndarray] | None = None
         if self._index["timesteps"]:
             self._recon = _to_host(self.load(self._index["timesteps"][-1]["t"]))
-        # The fields _recon, _index, _writer_err and write_s cross the
-        # writer-thread boundary ordered by the bounded queue + flush()'s
-        # queue.join(), not by a lock. (The JAX package's runtime race
-        # sanitizer, analysis.tsan, is not ported.)
+        # opt-in runtime race sanitizer (REPRO_TSAN=1; no-op otherwise).
+        # The listed fields cross the writer-thread boundary ordered by the
+        # bounded queue + flush()'s queue.join(), not by a lock — any OTHER
+        # field the writer starts touching is a reported race.
+        tsan.attach(self, name="TemporalCheckpointStore",
+                    ordered=("_recon", "_index", "_writer_err", "write_s"))
 
     # ------------------------------------------------------------------ write
     def append(self, t: int, params: G.GaussianModel) -> str:

@@ -14,8 +14,9 @@ Runs on the card by default and raises when there is none; ``--device cpu``
 runs the plain PyTorch versions instead. With ``--data-par`` or
 ``--model-par`` above 1 it runs one process per rank under torchrun (NCCL
 on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``); rank 0 keeps the
-store, serves the smoke and prints. Span export (``--trace-out``) is not
-ported yet.
+store, serves the smoke, prints and writes the span trace of
+``--trace-out`` (JSONL in the JAX package's schema, with a
+Perfetto-viewable ``.chrome.json`` beside it).
 
   PYTHONPATH=src python -m repro_torch.launch.insitu --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.insitu --dataset miranda \\
@@ -46,7 +47,7 @@ from repro_torch.insitu import (
     scrub,
 )
 from repro_torch.launch.mesh import init_ranks, make_gs_mesh
-from repro_torch.obs import Obs
+from repro_torch.obs import Obs, export_trace
 from repro_torch.obs.clock import now, since
 from repro_torch.serve_gs import front_camera
 from repro_torch.volume.timevary import GENERATORS, synthetic_stream
@@ -182,7 +183,9 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None, help="temporal store dir (default: temp dir)")
     ap.add_argument("--no-scrub", action="store_true", help="skip the serving smoke")
     ap.add_argument("--report", default=None, help="write the JSON report here too")
-    ap.add_argument("--trace-out", default=None, help="not ported yet")
+    ap.add_argument("--trace-out", default=None, metavar="PATH.jsonl",
+                    help="record per-timestep/per-step span traces; write JSONL "
+                         "here plus a Perfetto-viewable .chrome.json next to it")
     ap.add_argument("--trace-capacity", type=int, default=65536,
                     help="span ring size (oldest spans drop beyond this)")
     ap.add_argument("--metrics-out", default=None,
@@ -194,8 +197,6 @@ def main(argv=None):
     ap.add_argument("--overhead-budget", type=float, default=0.25)
     args = ap.parse_args(argv)
 
-    if args.trace_out is not None:
-        raise SystemExit("insitu: --trace-out is not ported yet (span export)")
     if args.smoke:
         args.timesteps = min(args.timesteps, 3)
         args.volume_res = min(args.volume_res, 32)
@@ -245,7 +246,7 @@ def main(argv=None):
                 "this driver records a fresh sequence from t=0 — pass a new --ckpt dir"
             )
 
-        obs = Obs()
+        obs = Obs(trace=args.trace_out is not None, trace_capacity=args.trace_capacity)
         trainer = InsituTrainer(
             cfg, mesh, device=device,
             capacity_factor=args.capacity_factor,
@@ -311,6 +312,13 @@ def main(argv=None):
         with open(args.metrics_out, "w") as f:
             json.dump(obs.metrics.snapshot(), f, indent=1, sort_keys=True)
         print("metrics:", args.metrics_out)
+    if args.trace_out:
+        export_trace(obs.trace, args.trace_out, {
+            "dataset": args.dataset, "timesteps": args.timesteps,
+            "cold_steps": args.cold_steps, "warm_steps": args.warm_steps,
+            "capacity": trainer.capacity,
+            "data_par": args.data_par, "model_par": args.model_par,
+        })
 
     if trainer.n_traces != 1:
         raise SystemExit(f"train step saw {trainer.n_traces} shape signatures, want 1")

@@ -11,7 +11,9 @@ plain PyTorch versions instead.
   PYTHONPATH=src python -m repro_torch.launch.serve_gs --ckpt experiments/ckpts/run0 --res 64
   PYTHONPATH=src python -m repro_torch.launch.serve_gs --res 512 --clients 4 --requests 4
 
-Span traces (``--trace-out``) are not ported yet.
+``--trace-out PATH.jsonl`` records the requests' span trees and writes them
+as JSONL (the JAX package's schema) with a Perfetto-viewable
+``.chrome.json`` beside it.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs.gs_datasets import DATASETS
 from repro_torch.core import gaussians as G
 from repro_torch.core.config import GSConfig
-from repro_torch.obs import Obs
+from repro_torch.obs import Obs, export_trace
 from repro_torch.serve_gs import RenderServer, make_clients, run_load
 from repro_torch.volume import datasets as VD
 from repro_torch.volume.isosurface import extract_isosurface_points
@@ -78,6 +80,11 @@ def main(argv=None):
                     "tile-granular cache + partial strip renders)")
     ap.add_argument("--rate", type=float, default=0.0, help="request rounds per second (0 = flat out)")
     ap.add_argument("--report", default=None, help="write the JSON report here too")
+    ap.add_argument("--trace-out", default=None, metavar="PATH.jsonl",
+                    help="record request span traces; on exit write JSONL "
+                         "here plus a Perfetto-viewable .chrome.json next to it")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="span ring size (oldest spans drop beyond this)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -96,11 +103,12 @@ def main(argv=None):
         )
     cfg = GSConfig(img_h=args.res, img_w=args.res, k_per_tile=128 if args.smoke else 256)
 
+    obs = Obs(trace=args.trace_out is not None, trace_capacity=args.trace_capacity)
     with RenderServer(
         params,
         cfg,
         device=device,
-        obs=Obs(),
+        obs=obs,
         n_levels=args.levels,
         keep_ratio=args.keep_ratio,
         max_batch=args.max_batch,
@@ -139,6 +147,9 @@ def main(argv=None):
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
             f.write(out)
+    if args.trace_out:
+        export_trace(obs.trace, args.trace_out,
+                     {"max_batch": args.max_batch, "pipeline_depth": args.pipeline_depth})
     if report["completed"] != args.clients * args.requests:
         raise SystemExit(
             f"pipelined path dropped requests: completed {report['completed']} of "

@@ -9,8 +9,9 @@ Runs on the card by default and raises when there is none; ``--device cpu``
 trains through the plain PyTorch versions instead. With ``--data-par`` or
 ``--model-par`` above 1 it runs one process per rank under torchrun: each
 rank takes ``cuda:LOCAL_RANK`` and NCCL (or the CPU and gloo with
-``--device cpu``), and only rank 0 prints and writes files. Span traces
-(``--trace-out``) are not ported yet.
+``--device cpu``), and only rank 0 prints and writes files (the per-step
+span trace of ``--trace-out`` too: JSONL in the JAX package's schema, with
+a Perfetto-viewable ``.chrome.json`` beside it).
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --dataset kingsnake \
       --volume-res 32 --max-points 800 --res 32 --steps 8 --views 4 --batch 2 --ckpt experiments/ckpts/tckpt
@@ -45,7 +46,7 @@ from repro_torch.core.train import (
 )
 from repro_torch.data.views import ViewDataset
 from repro_torch.launch.mesh import init_ranks, make_gs_mesh
-from repro_torch.obs import Obs, devmem, new_request_id
+from repro_torch.obs import Obs, devmem, export_trace, new_request_id
 from repro_torch.obs.clock import now, since
 from repro_torch.volume import datasets as VD
 from repro_torch.volume.isosurface import extract_isosurface_points
@@ -208,12 +209,12 @@ def main(argv=None):
     ap.add_argument("--k-per-tile", type=int, default=256)
     ap.add_argument("--gather-mode", default="auto", choices=["auto", "projected", "params3d"])
     ap.add_argument("--ckpt", default=None)
-    ap.add_argument("--trace-out", default=None, help="not ported yet")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-step span trace (JSONL; .chrome.json sibling for Perfetto)")
     ap.add_argument("--metrics-out", default=None, help="write final train.* registry snapshot as JSON")
+    ap.add_argument("--trace-capacity", type=int, default=65536)
     args = ap.parse_args(argv)
 
-    if args.trace_out is not None:
-        raise SystemExit("train: --trace-out is not ported yet (span export)")
     device = torch.device(args.device)
     ranks = args.data_par * args.model_par
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -233,7 +234,7 @@ def main(argv=None):
         raise SystemExit("train: no CUDA device; pass --device cpu to train on the CPU")
     lead = mesh is None or mesh.rank == 0
 
-    obs = Obs()
+    obs = Obs(trace=args.trace_out is not None, trace_capacity=args.trace_capacity)
     cfg = GSConfig(
         img_h=args.res, img_w=args.res, batch_size=args.batch,
         k_per_tile=args.k_per_tile, max_steps=max(args.steps, 1),
@@ -260,13 +261,23 @@ def main(argv=None):
     if lead:
         print(f"train {train_time:.1f}s  final-loss {losses[-1]:.5f}  {metrics}")
     if args.ckpt:
+        rec, rid = obs.trace, new_request_id()
+        t_c = now()
         path = save_checkpoint(args.ckpt, int(tr.state.step), tr.state, mesh=mesh)
+        if rec:
+            rec.record(rid, "ckpt", t_c, now(), step=int(tr.state.step))
         if lead:
             print("checkpoint:", path)
     if args.metrics_out and lead:
         with open(args.metrics_out, "w") as f:
             json.dump(obs.metrics.snapshot(), f, indent=1, sort_keys=True)
         print("metrics:", args.metrics_out)
+    if args.trace_out and lead:
+        export_trace(obs.trace, args.trace_out, {
+            "dataset": args.dataset, "steps": args.steps, "batch": args.batch,
+            "data_par": args.data_par, "model_par": args.model_par,
+            "device": str(device), "gather_mode": cfg.gather_mode,
+        })
     if owns_group:
         dist.destroy_process_group()
 

@@ -1,5 +1,6 @@
 """PyTorch port, on the card: each hand-written CUDA kernel against its plain
-PyTorch version, the serving path through the forward kernels, a train
+PyTorch version, the serving path through the forward kernels (in process
+and through the network frontend's gateway), a train
 step through the three splatting kernels against the same step on the CPU,
 the sharded train step on a world-1 NCCL mesh bitwise against the
 one-device step (and across cards where there are two or more), the mesh
@@ -190,6 +191,42 @@ def test_server_on_card_goes_through_both_kernels(cuda_device):
     assert gp_ops.launch_count.n > before[0] and tr_ops.launch_count.n > before[1]
     for a, b in zip(frames[str(cuda_device)], frames["cpu"]):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_gateway_on_card_serves_the_in_process_frames_through_both_kernels(cuda_device):
+    """The frontend over TCP with the shared server on the card (the engine
+    driven from the gateway's render thread): a static stream and a
+    two-step timeline, tiles8 negotiated; every frame bitwise
+    ``quantize_rgb8`` of the in-process card frame, nothing shed or failed,
+    and both forward kernels launched during the network run."""
+    from repro_torch.frontend import FrontendClient, Gateway, GatewayThread, SessionManager, quantize_rgb8
+    from repro_torch.launch.frontend import synthetic_timeline
+
+    host = _scene(2000, seed=1, scale=0.03)
+    timeline = synthetic_timeline(G.from_numpy(host, "cpu"), 2)
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64)
+    kw = dict(n_levels=1, max_batch=4, store_frames=False)
+    mgr = SessionManager(cfg, device=cuda_device, **kw)
+    mgr.register_static("static", host)
+    mgr.register_timeline("timeline", timeline)
+    mgr.warmup()
+    cams = [_cam(64, 64, dist=2.0 + 0.25 * i) for i in range(3)]
+    before = (gp_ops.launch_count.n, tr_ops.launch_count.n)
+    with GatewayThread(Gateway(mgr, port=0)) as gt:
+        with FrontendClient("127.0.0.1", gt.port, timeout=60.0) as cl:
+            got = {"static": [cl.render("static", c) for c in cams],
+                   "timeline": [cl.render("timeline", c, timestep=1) for c in cams]}
+            stats = cl.stats()["gateway"]
+    launches = (gp_ops.launch_count.n - before[0], tr_ops.launch_count.n - before[1])
+    assert launches[0] > 0 and launches[1] > 0, launches
+    assert stats["frames_sent"] == 6 and stats["shed"] == 0
+    assert stats["protocol_errors"] == stats["request_errors"] == stats["engine_errors"] == 0
+    for name, params in (("static", host), ("timeline", timeline[1])):
+        with RenderServer(params, cfg, device=cuda_device, **kw) as srv:
+            futs = [srv.submit(c) for c in cams]
+            srv.run()
+            for a, f in zip(got[name], futs):
+                np.testing.assert_array_equal(a, quantize_rgb8(f.result()))
 
 
 def _bwd_inputs(seed, t_count, k, tiles_x, th, tw, row_offset):

@@ -390,8 +390,6 @@ def test_insitu_cli_smoke_on_the_cpu(tmp_path, capsys):
 
 
 def test_insitu_cli_refuses_what_is_not_ported():
-    with pytest.raises(SystemExit, match="not ported"):
-        insitu_cli.main(["--device", "cpu", "--trace-out", "t.jsonl"])
     with pytest.raises(SystemExit, match="torchrun"):  # one process per rank: no process group here
         insitu_cli.main(["--device", "cpu", "--model-par", "2"])
     if not torch.cuda.is_available():

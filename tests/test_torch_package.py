@@ -44,13 +44,16 @@ def _port_modules() -> list[str]:
 def test_port_sources_never_import_jax_or_the_jax_package():
     offenders = [
         f"{p.relative_to(REPO)}: {m.group(0).strip()}"
-        for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+        for p in [*PORT.rglob("*.py"), REPO / "chip_smoke.py", *REPO.glob("benchmarks/*_torch.py"),
+                  *REPO.glob("examples/*_torch.py")]
         for m in _FORBIDDEN.finditer(p.read_text())
     ]
     assert not offenders, offenders
 
 
 def test_importing_every_port_module_loads_no_jax():
+    assert {"repro_torch.analysis.tsan", "repro_torch.obs.export", "repro_torch.obs.slo", "repro_torch.frontend.gateway",
+            "repro_torch.frontend.sessions", "repro_torch.launch.frontend"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"mods = {_port_modules()!r}\n"
