@@ -27,8 +27,9 @@ the fps ratio falls below ``--min-ratio``.
   PYTHONPATH=src python benchmarks/frontend_load_torch.py --smoke --device cpu --out BENCH_frontend.json
   PYTHONPATH=src python benchmarks/frontend_load_torch.py --res 512 --out BENCH_frontend.json
 
-``--config-from`` (knobs from the tuner) is refused: the tuner is not
-ported yet.
+``--config-from RECOMMEND.json`` takes the gateway and engine knobs from a
+recommendation that ``python -m repro_torch.launch.tune`` wrote (or a bare
+knob dict), as the JAX benchmark does.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from repro_torch.frontend import (  # noqa: E402
 from repro_torch.insitu import TemporalCheckpointStore, timeline_stream  # noqa: E402
 from repro_torch.launch.frontend import synthetic_timeline  # noqa: E402
 from repro_torch.launch.serve_gs import init_params_from_volume  # noqa: E402
+from repro_torch.launch.tune import load_recommended_knobs  # noqa: E402
 from repro_torch.obs import Histogram, trace_meta, validate_trace_jsonl, write_trace  # noqa: E402
 from repro_torch.serve_gs import make_clients  # noqa: E402
 from repro_torch.serve_gs.server import _percentile  # noqa: E402
@@ -205,6 +207,25 @@ async def drive_clients(host, port, trace, window) -> dict:
 
 
 
+def config_from(args) -> None:
+    """Set ``args``' knobs from ``--config-from`` (the tuner's
+    recommendation), as ``benchmarks/frontend_load.py`` does; knobs this
+    driver does not have (``cache_scale``) are ignored."""
+    knobs = load_recommended_knobs(args.config_from)
+    for knob, attr in (
+        ("coalesce_ms", "coalesce_ms"), ("max_batch", "max_batch"),
+        ("pipeline_depth", "pipeline_depth"), ("queue_limit", "queue_limit"),
+        ("wave_per_session", "wave_per_session"),
+    ):
+        if knob in knobs:
+            setattr(args, attr, type(getattr(args, attr))(knobs[knob]))
+    print(f"config-from {args.config_from}: "
+          f"coalesce_ms={args.coalesce_ms} max_batch={args.max_batch} "
+          f"pipeline_depth={args.pipeline_depth} "
+          f"queue_limit={args.queue_limit} "
+          f"wave_per_session={args.wave_per_session}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -223,7 +244,7 @@ def main(argv=None):
     ap.add_argument("--wave-per-session", type=int, default=4)
     ap.add_argument("--coalesce-ms", type=float, default=2.0)
     ap.add_argument("--config-from", default=None, metavar="RECOMMEND.json",
-                    help="knobs recommended by the tuner (refused: not ported yet)")
+                    help="knobs recommended by launch.tune (or a bare knob dict)")
     ap.add_argument("--client-window", type=int, default=2,
                     help="in-flight requests per client (1 = strict lockstep)")
     ap.add_argument("--no-delta", action="store_true")
@@ -242,8 +263,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.config_from:
-        raise SystemExit("frontend_load_torch: --config-from needs the tuner (launch/tune.py), which is not "
-                         "ported yet")
+        config_from(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("frontend_load_torch: no CUDA device; pass --device cpu to run on the CPU")

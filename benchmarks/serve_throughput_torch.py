@@ -28,8 +28,9 @@ Exits nonzero if any scenario completes fewer requests than were submitted.
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
       benchmarks/serve_throughput_torch.py --res 512 --volume-res 96 --max-points 40000
 
-``--config-from`` (knobs from the tuner) is refused: the tuner is not
-ported yet.
+``--config-from RECOMMEND.json`` takes ``max_batch`` and ``pipeline_depth``
+from a recommendation that ``python -m repro_torch.launch.tune`` wrote (or a
+bare knob dict), as the JAX benchmark does.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from bench_schema import stage_breakdown, write_bench  # noqa: E402
 from repro_torch.core.config import GSConfig  # noqa: E402
 from repro_torch.launch.mesh import init_ranks, make_gs_mesh  # noqa: E402
 from repro_torch.launch.serve_gs import init_params_from_volume  # noqa: E402
+from repro_torch.launch.tune import load_recommended_knobs  # noqa: E402
 from repro_torch.serve_gs import RenderServer, make_clients, run_load  # noqa: E402
 from repro_torch.serve_gs.batcher import stack_cameras  # noqa: E402
 
@@ -262,6 +264,18 @@ def run(args, mesh, device) -> tuple[dict, dict] | None:
     return report, pipe_snap
 
 
+def config_from(args) -> None:
+    """Set ``args``' engine knobs from ``--config-from`` (the tuner's
+    recommendation), as ``benchmarks/serve_throughput.py`` does."""
+    knobs = load_recommended_knobs(args.config_from)
+    if "max_batch" in knobs:
+        args.max_batch = int(knobs["max_batch"])
+    if "pipeline_depth" in knobs:
+        args.pipeline_depth = int(knobs["pipeline_depth"])
+    print(f"config-from {args.config_from}: max_batch={args.max_batch} "
+          f"pipeline_depth={args.pipeline_depth}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true", help="reduced CPU config")
@@ -281,7 +295,8 @@ def main(argv=None):
         help="in-flight depth for the pipelined scenario (sync baseline is 1)",
     )
     ap.add_argument("--config-from", default=None, metavar="RECOMMEND.json",
-                    help="not ported: the tuner that writes it is not ported yet")
+                    help="take max_batch / pipeline_depth from a launch.tune "
+                    "recommendation (or a bare knob dict)")
     ap.add_argument(
         "--max-trace-overhead", type=float, default=0.25,
         help="fail if the span-traced lap loses more than this fraction of "
@@ -295,8 +310,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.config_from:
-        raise SystemExit("serve_throughput_torch: --config-from needs the tuner (launch/tune.py), which is not "
-                         "ported yet")
+        config_from(args)
     if args.smoke:
         args.res, args.volume_res, args.max_points = 32, 32, 800
         args.requests = min(args.requests, 6)

@@ -6,11 +6,12 @@ device and on a mesh of ranks over NCCL, train the same scene for a few
 steps through ``GSTrainer``, on one device and on a mesh of ranks, stream
 a time-varying Miranda volume through the in situ trainer, its temporal
 store and a time-scrubbing server, serve both to TCP clients through the
-network frontend, then prefill and decode
+network frontend, train at the paper's scale (Miranda's 18.18M Gaussians
+on one card), then prefill and decode
 the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
-    python3 chip_smoke.py --ranks-only    # phases 4b and 5b alone, e.g. on several cards
+    python3 chip_smoke.py --ranks-only    # the phases across ranks alone, e.g. on several cards
 
 Run from the root of a checkout on a machine with one NVIDIA card (an H100
 is what the numbers in PERF.md were taken on). It builds the kernels from
@@ -101,6 +102,16 @@ Phases, in order (any failure exits non-zero):
      in-process frame, the scrubbed timesteps are distinct, nothing is shed
      and no protocol, request or engine error occurs, and both forward
      kernels launch over TCP;
+  5e. paper scale: Miranda at the paper's 18,180,000 Gaussians
+     (``paper_scene``) on one card at ``paper_gs_config(512)``, 8
+     ray-marched views, 4 steps with densification off and a span trace, the
+     launch counters zeroed just before and read just after (4 a step of
+     each splatting kernel); step ms p50, peak memory against 40 GB (the
+     paper's A100) and 80 GB, the per-stage split of the trace
+     (``train_stage_breakdown``) and the busy share of one step; then
+     phase 4's 4M Kingsnake at 2048 px, 4 views, 3 steps: step ms, peak
+     and the busy share of one step; it fails on a non-finite loss or a
+     wrong launch count;
   7. lm: the attention kernel against its plain version (the JAX kernel
      test's sweep, Skv 9000, a 1024-key window and a ragged long case at
      hd 128, each in float32 on the CUDA-core kernel and in bfloat16 on the
@@ -121,8 +132,17 @@ Phases, in order (any failure exits non-zero):
      for attention; ``launches_by_path`` with every path's own counts,
      ``serve_ranks`` the mesh server of phase 4b, ``ranks`` the sharded fits
      of phase 5b, ``insitu`` the stream, scrub and replay of phase 5c,
-     ``frontend`` the TCP lap of phase 5d) and
-     the final status line.
+     ``frontend`` the TCP lap of phase 5d, ``paper_scale`` the two fits of
+     phase 5e) and the final status line.
+
+With ``--ranks-only`` it builds, makes the scene and its views, and runs
+phases 4b and 5b, then Miranda's 18.18M Gaussians: phase 5e's one-device
+run and, with two or more cards, (1, 2) and (1, 4) in ``projected`` mode
+with one rank per card, 4 steps each, the losses held to one device at rtol
+1e-5 and the peak on the fullest rank printed; then the in situ trainer on
+a (1, 2) mesh across two cards over 2 timesteps of phase 5c's stream, held
+to one device (per-step losses rtol 1e-5, the same reseeded slots). Its last
+line is their result as JSON.
 """
 from __future__ import annotations
 
@@ -130,7 +150,6 @@ import argparse
 import dataclasses
 import itertools
 import json
-import math
 import re
 import subprocess
 import sys
@@ -236,64 +255,39 @@ def host_us(fn, iters: int = 200) -> float:
 
 
 def profile_step(fn, wall_ms: float, top: int = 8, label: str = "train step") -> None:
-    """Device busy time of one ``fn()`` from a torch.profiler trace (the sum of
-    its kernels' and copies' device time, which run one at a time on one
-    stream), its share of the step's unprofiled wall time ``wall_ms``, and
-    the kernels that take most of it. Says so when the trace holds no device
-    time."""
+    """Device busy time of one ``fn()`` from a torch.profiler trace: the
+    union of its kernels', copies' and fills' intervals on the card's
+    timeline (``obs/devtime.py``; rows on several streams count once), its
+    share of the same profiled call's wall time, and the kernels that take
+    most of the device time. ``wall_ms`` is the unprofiled p50, printed
+    beside it. Says so when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.devtime import device_time
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    rows = []  # the device-side rows (kernels, copies, fills), not the host ops that launched them
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            rows.append((ev.self_device_time_total, ev.count, ev.key))
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    if busy_ms <= 0:
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    d = device_time(prof, prof_wall_ms)
+    if d["busy_ms"] <= 0:
         log(f"{label} profile: the trace holds no device time; device busy share not measured")
         return
-    rows.sort(reverse=True)
+    rows = sorted(((ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0),
+                  reverse=True)
     host = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
                    if ev.device_type == torch.autograd.DeviceType.CPU), reverse=True)
-    log(f"{label} profile: device busy {busy_ms:.3f} ms of the step's {wall_ms:.3f} ms wall (p50) -> busy "
-        f"share {busy_ms / wall_ms:.4f}, idle share {1 - busy_ms / wall_ms:.4f}; {sum(r[1] for r in rows)} device "
-        f"ops; top: " + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for us, c, k in rows[:top]))
+    log(f"{label} profile: device busy {d['busy_ms']:.3f} ms (union of {d['n_ops']} device ops' intervals; "
+        f"summed {d['summed_ms']:.3f} ms, NCCL {d['nccl_ms']:.3f} ms overlapping the rest by {d['overlap_ms']:.3f} "
+        f"ms) of the profiled call's {prof_wall_ms:.3f} ms wall (unprofiled p50 {wall_ms:.3f} ms) -> busy share "
+        f"{d['busy_share']:.4f}, idle share {1 - d['busy_share']:.4f}; top: "
+        + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for us, c, k in rows[:top]))
     log(f"{label} profile, host side (self time): "
         + "; ".join(f"{k[:40]} x{c} {us / 1e3:.3f} ms" for us, c, k in host[:top]))
-
-
-def kingsnake_scene(n_points: int, seed: int):
-    """Host model of ``n_points`` Gaussians on the Kingsnake isosurface.
-
-    The synthetic volume is extracted at the dataset's resolution, and each
-    surface point is replicated with sub-voxel jitter until the paper's
-    count is reached; the init scale shrinks with the replication so the
-    surface keeps its coverage. Rotations, anisotropy and opacities are
-    drawn from ``seed`` (random weights, as a trained model would vary)."""
-    from repro_torch.configs.gs_datasets import DATASETS
-    from repro_torch.core import gaussians as G
-    from repro_torch.volume import datasets as VD
-    from repro_torch.volume.isosurface import extract_isosurface_points
-
-    ds = DATASETS["kingsnake"]
-    vol = getattr(VD, ds.volume)(res=ds.volume_res)
-    pts, _, cols = extract_isosurface_points(vol)
-    rng = np.random.default_rng(seed)
-    spacing = 2.0 * vol.extent / (ds.volume_res - 1)
-    rep = n_points / pts.shape[0]
-    src = np.arange(n_points) % pts.shape[0]
-    means = (pts[src] + rng.uniform(-0.5, 0.5, (n_points, 3)) * spacing).astype(np.float32)
-    g = G.to_numpy(G.init_from_points(means, cols[src], init_scale=0.5 * spacing / math.sqrt(rep), device="cpu"))
-    g = g._replace(
-        log_scales=(g.log_scales + rng.normal(0.0, 0.3, (n_points, 3))).astype(np.float32),
-        quats=rng.normal(0.0, 1.0, (n_points, 4)).astype(np.float32),
-        opacity_logit=(g.opacity_logit + rng.normal(0.0, 0.5, n_points)).astype(np.float32),
-    )
-    return g, pts.shape[0], vol
 
 
 def allclose_report(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
@@ -638,11 +632,12 @@ RANKS_DIR = ROOT / "build" / "repro_torch_ranks"
 
 
 def _rank_worker(rank: int, n: int, mode: str, steps: int, res: int, n_views: int, device_type: str,
-                 timeout_s: float) -> None:
+                 timeout_s: float, dataset: str = "kingsnake") -> None:
     """One rank of a (1, n) run across cards: NCCL on cuda:rank (gloo on
-    the CPU when the phase is rehearsed there), the phase-5 model and views
-    from ``RANKS_DIR``, ``steps`` steps through ``GSTrainer(mesh=...)``;
-    rank 0 writes the losses and step times."""
+    the CPU when the phase is rehearsed there), ``dataset``'s model
+    (``RANKS_DIR/<dataset>.npz``) and views (the ground-truth cache in
+    ``RANKS_DIR``), ``steps`` steps through ``GSTrainer(mesh=...)``; rank 0
+    writes the losses, step times and every rank's peak memory."""
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -654,19 +649,24 @@ def _rank_worker(rank: int, n: int, mode: str, steps: int, res: int, n_views: in
     from repro_torch.volume import datasets as VD
 
     dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
-    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_{mode}_{n}", rank=rank, world_size=n,
+    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_{dataset}_{mode}_{n}", rank=rank, world_size=n,
                timeout_s=timeout_s)
     mesh = make_gs_mesh(1, n, device=dev)
-    host = np.load(RANKS_DIR / "host.npz")
-    ds = DATASETS["kingsnake"]
+    host = np.load(RANKS_DIR / f"{dataset}.npz")
+    ds = DATASETS[dataset]
     data = ViewDataset(getattr(VD, ds.volume)(res=ds.volume_res), n_views=n_views, img_h=res, img_w=res, radius=3.0,
                        cache_dir=str(RANKS_DIR), device=dev)
     cfg = paper_gs_config(res, gather_mode=mode, max_steps=steps)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     tr = GSTrainer(cfg, params=G.GaussianModel(*[host[f] for f in G.GaussianModel._fields]), mesh=mesh,
                    verbose=False)
     losses = tr.fit(data, steps=steps, densify=False)
+    peaks = [None] * n
+    torch.distributed.all_gather_object(peaks, torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
     if rank == 0:
-        (RANKS_DIR / f"losses_{mode}_{n}.json").write_text(json.dumps({"losses": losses, "step_ms": tr.step_ms_log}))
+        (RANKS_DIR / f"losses_{dataset}_{mode}_{n}.json").write_text(
+            json.dumps({"losses": losses, "step_ms": tr.step_ms_log, "peak_bytes": peaks}))
     torch.distributed.destroy_process_group()
 
 
@@ -707,7 +707,7 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
 
     from repro_torch.configs.gs_datasets import paper_gs_config
     from repro_torch.core.train import all_gather_bytes_per_step
-    from repro_torch.launch.mesh import make_gs_mesh
+    from repro_torch.launch.mesh import make_gs_mesh, spawn_ranks
     from repro_torch.launch.train import GSTrainer
     from repro_torch.utils.tree import tree_leaves
 
@@ -774,7 +774,7 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
     # (1, n) with one rank per card, n = 2 and 4 (512 px in 16-px tiles splits into whole-tile strips), each
     # held to the one-device trainer on the same batches; step p50 over the steps after the first two
     # (NCCL's communicators and the kernels warm up in them)
-    np.savez(RANKS_DIR / "host.npz", **{f: getattr(host, f) for f in host._fields})
+    np.savez(RANKS_DIR / "kingsnake.npz", **{f: getattr(host, f) for f in host._fields})
     np.save(RANKS_DIR / f"kingsnake_like_{data.n_views}v_{res}x{res}.npy", data.gt)
     out["multi_card"] = {}
     for mode in ("projected", "params3d"):
@@ -785,25 +785,16 @@ def ranks_phase(dev, card: str, host, data, counters: dict) -> dict:
         world1_ms = one.step_ms_log
         del one
         for n in [k for k in (2, 4) if k <= n_cards]:
-            ctx = torch.multiprocessing.start_processes(
-                _rank_worker, args=(n, mode, RANKS_CARD_STEPS, res, data.n_views, dev.type, 300.0), nprocs=n,
-                join=False, start_method="spawn")
-            deadline = time.perf_counter() + 600
-            try:
-                while not ctx.join(timeout=5):
-                    if time.perf_counter() > deadline:
-                        raise SystemExit(f"ranks: the (1, {n}) run across cards did not finish in 600 s")
-            finally:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.terminate()
-            got = json.loads((RANKS_DIR / f"losses_{mode}_{n}.json").read_text())
+            spawn_ranks(_rank_worker, (n, mode, RANKS_CARD_STEPS, res, data.n_views, dev.type, 300.0), n,
+                        timeout_s=600)
+            got = json.loads((RANKS_DIR / f"losses_kingsnake_{mode}_{n}.json").read_text())
             ok = np.allclose(got["losses"], want, rtol=1e-5, atol=0)
             p50, p50_1 = float(np.median(got["step_ms"][2:])), float(np.median(world1_ms[2:]))
             log(f"ranks (1, {n}) {mode} over NCCL across {n} cards ({card}): {RANKS_CARD_STEPS} steps, losses "
                 f"{got['losses']} vs world 1 {want}, within rtol 1e-5: {ok}; step ms (rank 0) "
                 f"{[round(x, 3) for x in got['step_ms']]} p50 of steps 3-{RANKS_CARD_STEPS} {p50:.3f} vs one device "
-                f"{[round(x, 3) for x in world1_ms]} p50 {p50_1:.3f} (x{p50_1 / p50:.3f})")
+                f"{[round(x, 3) for x in world1_ms]} p50 {p50_1:.3f} (x{p50_1 / p50:.3f}); peak on the fullest rank "
+                f"{max(got['peak_bytes'])} B")
             if not ok:
                 raise SystemExit(f"ranks: (1, {n}) {mode} losses differ from world 1 beyond rtol 1e-5")
             out["multi_card"][f"{mode}_1x{n}"] = {**got, "world1_losses": want, "world1_step_ms": world1_ms,
@@ -816,6 +807,14 @@ INSITU_STREAM = dict(dataset="miranda", n_timesteps=4, res=256, t1=0.3)
 INSITU_COLD, INSITU_WARM, INSITU_VIEWS = 100, 20, 8
 INSITU_SMALL = dict(img_h=32, img_w=32, batch_size=2, k_per_tile=128, max_steps=10, densify_from=10**9,
                     opacity_reset_interval=10**9)
+
+
+def insitu_kw(vol0, res: int) -> dict:
+    """The in situ trainer's keywords for a stream of ``res``^3 fields (its
+    first field ``vol0``): 8 views, every extracted point, init scale one
+    voxel."""
+    spacing = 2.0 * vol0.extent / (res - 1)
+    return dict(n_views=INSITU_VIEWS, max_points=None, init_scale=spacing, radius=3.0, seed=0)
 
 
 def insitu_phase(dev, card: str, counters: dict, res: int, step_ms_4m: float) -> dict:
@@ -853,8 +852,7 @@ def insitu_phase(dev, card: str, counters: dict, res: int, step_ms_4m: float) ->
     n_t = len(vols)
     cfg = paper_gs_config(res, densify_from=10**9, opacity_reset_interval=10**9,
                           max_steps=INSITU_COLD + INSITU_WARM * (n_t - 1))
-    spacing = 2.0 * vols[0].extent / (INSITU_STREAM["res"] - 1)
-    kw = dict(n_views=INSITU_VIEWS, max_points=None, init_scale=spacing, radius=3.0, seed=0)
+    kw = insitu_kw(vols[0], INSITU_STREAM["res"])
     log(f"insitu: cut to size: widths are the paper's ({res} px, {cfg.tile_h}x{cfg.tile_w} tiles, K "
         f"{cfg.k_per_tile}, binning {cfg.binning}, batch {cfg.batch_size}, lambda_dssim {cfg.lambda_dssim}); scale is "
         f"what extraction gives at a {INSITU_STREAM['res']}^3 field the host generates in seconds (not the paper's "
@@ -988,6 +986,204 @@ def insitu_phase(dev, card: str, counters: dict, res: int, step_ms_4m: float) ->
     del pair, one, w1
     shutil.rmtree(INSITU_DIR / "gt_small", ignore_errors=True)  # the store stays for phase 5d
     return launches
+
+
+INSITU_RANKS_COLD, INSITU_RANKS_WARM = 10, 5  # 2 timesteps of the stream, as the world-1 check runs them
+
+
+def _insitu_rank_worker(rank: int, n: int, res: int, stream: dict, device_type: str, timeout_s: float) -> None:
+    """One rank of the in situ trainer on a (1, n) mesh across cards: 2
+    timesteps of ``stream`` (``synthetic_stream``'s arguments) at
+    ``paper_gs_config(res)``; rank 0 writes the step losses, the reseeded
+    slots and the step times."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.insitu import InsituTrainer
+    from repro_torch.launch.mesh import init_ranks, make_gs_mesh
+    from repro_torch.volume.timevary import synthetic_stream
+
+    dev = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    init_ranks(dev, init_method=f"file://{RANKS_DIR}/store_insitu_{n}", rank=rank, world_size=n, timeout_s=timeout_s)
+    vols = list(synthetic_stream(**stream))[:2]
+    cfg = paper_gs_config(res, densify_from=10**9, opacity_reset_interval=10**9,
+                          max_steps=INSITU_RANKS_COLD + INSITU_RANKS_WARM)
+    tr = InsituTrainer(cfg, make_gs_mesh(1, n, device=dev), device=dev, cold_steps=INSITU_RANKS_COLD,
+                       warm_steps=INSITU_RANKS_WARM, **insitu_kw(vols[0], stream["res"]))
+    tr.run(vols)
+    if rank == 0:
+        (RANKS_DIR / f"insitu_{n}.json").write_text(json.dumps(
+            {"losses": tr.step_losses, "reseed": [s.tolist() for s in tr.reseed_log], "step_ms": tr.step_ms,
+             "capacity": tr.capacity, "n_traces": tr.n_traces}))
+    torch.distributed.destroy_process_group()
+
+
+def insitu_ranks_phase(dev, card: str, res: int) -> dict:
+    """The in situ trainer on a (1, 2) mesh across two cards (one rank per
+    card, NCCL) over 2 timesteps of ``INSITU_STREAM``, held to the one-device
+    trainer as ``tests/test_torch_insitu_ranks.py`` holds it on gloo ranks:
+    per-step losses within rtol 1e-5, the same reseeded slots, one shape
+    signature."""
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.insitu import InsituTrainer
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.volume.timevary import synthetic_stream
+
+    if torch.cuda.device_count() < 2:
+        log("insitu ranks: 1 card on this machine: the (1, 2) mesh across cards not run")
+        return {}
+    vols = list(synthetic_stream(**INSITU_STREAM))[:2]
+    cfg = paper_gs_config(res, densify_from=10**9, opacity_reset_interval=10**9,
+                          max_steps=INSITU_RANKS_COLD + INSITU_RANKS_WARM)
+    one = InsituTrainer(cfg, device=dev, cold_steps=INSITU_RANKS_COLD, warm_steps=INSITU_RANKS_WARM,
+                        **insitu_kw(vols[0], INSITU_STREAM["res"]))
+    one.run(vols)
+    want = {"losses": one.step_losses, "reseed": [s.tolist() for s in one.reseed_log], "step_ms": one.step_ms}
+    del one
+    torch.cuda.empty_cache()
+    spawn_ranks(_insitu_rank_worker, (2, res, INSITU_STREAM, dev.type, 300.0), 2, timeout_s=600)
+    got = json.loads((RANKS_DIR / "insitu_2.json").read_text())
+    ok = np.allclose(got["losses"], want["losses"], rtol=1e-5, atol=0)
+    same_slots = got["reseed"] == want["reseed"]
+    log(f"insitu (1, 2) over NCCL across 2 cards ({card}): 2 timesteps, {INSITU_RANKS_COLD} cold and "
+        f"{INSITU_RANKS_WARM} warm steps at {got['capacity']} Gaussians: losses within rtol 1e-5 of one device: {ok} "
+        f"(max rel err {float(np.max(np.abs(np.subtract(got['losses'], want['losses'])) / np.abs(want['losses']))):.3e}"
+        f"); reseeded {[len(x) for x in got['reseed']]}, same slots {same_slots}; shape signatures "
+        f"{got['n_traces']}; step ms p50 (rank 0) {float(np.median(got['step_ms'])):.3f} vs one device "
+        f"{float(np.median(want['step_ms'])):.3f}")
+    if not (ok and same_slots and got["n_traces"] == 1):
+        raise SystemExit("insitu ranks: the (1, 2) trainer across cards disagrees with one device")
+    return {"losses": got["losses"], "step_ms_p50": float(np.median(got["step_ms"])),
+            "one_device_step_ms_p50": float(np.median(want["step_ms"]))}
+
+
+PAPER_MIRANDA = 18_180_000      # the paper's Miranda Gaussians
+PAPER_RES, PAPER_STEPS, PAPER_VIEWS = 512, 4, 8
+PAPER_HIGH_RES, PAPER_HIGH_STEPS, PAPER_HIGH_VIEWS = 2048, 3, 4  # Kingsnake 4M at the paper's largest frame
+WORKER_HBM, CARD_HBM = 40e9, 80e9  # the paper's A100 and this card
+
+
+def paper_fit(dev, card: str, label: str, host, data, res: int, steps: int, counters: dict) -> tuple:
+    """``steps`` steps of ``GSTrainer`` at ``paper_gs_config(res)``,
+    densification off, with a span trace, the launch counters zeroed just
+    before and read just after: fails on a non-finite loss or unless each
+    splatting kernel launched 4 times a step (and attention never). Prints
+    step ms p50 (after the first step), the peak against 40 and 80 GB and
+    the per-stage split of the trace (``train_stage_breakdown``). Returns the
+    trainer, its losses, the step p50 and the launches."""
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.launch.train import GSTrainer
+    from repro_torch.obs import Obs, spans_to_jsonl
+    from repro_torch.obs.replay import load_trace, train_stage_breakdown
+
+    cfg = paper_gs_config(res, max_steps=steps)
+    data.rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = GSTrainer(cfg, device=dev, params=host, obs=Obs(trace=True), verbose=False)
+    for c in counters.values():
+        c.n = 0
+    losses = tr.fit(data, steps=steps, densify=False)
+    torch.cuda.synchronize()
+    launches = {k: c.n for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    _, records = load_trace(spans_to_jsonl(tr.obs.trace.drain()))
+    stages = train_stage_breakdown([r for r in records if r.get("step", 0) >= 1])
+    p50 = float(np.median(tr.step_ms_log[1:]))
+    log(f"paper scale {label} ({card}): {tr.state.params.n} Gaussians, {res} px, batch {cfg.batch_size}, K "
+        f"{cfg.k_per_tile}, binning {cfg.binning}, {steps} steps: losses {[round(x, 6) for x in losses]}; step ms "
+        f"{[round(x, 3) for x in tr.step_ms_log]}, p50 of steps 2-{steps} {p50:.3f}; peak {peak} B (fits 40 GB: "
+        f"{peak < WORKER_HBM}, 80 GB: {peak < CARD_HBM}); launches {launches}")
+    log(f"paper scale {label} stage split (span trace, train_stage_breakdown, steps 2-{steps}): "
+        + ", ".join(f"{k} p50 {v.percentile(50) * 1e3:.3f} ms (mean {v.mean * 1e3:.3f}, n {v.count})"
+                    for k, v in stages.items() if k != "timesteps"))
+    want = [4 * steps] * 3 + [0]
+    if not np.isfinite(losses).all() or len(losses) != steps:
+        raise SystemExit(f"paper scale {label}: losses not finite: {losses}")
+    if list(launches.values()) != want:
+        raise SystemExit(f"paper scale {label}: launches {launches}, want {want}: 4 per step of each splatting "
+                         "kernel and no attention")
+    return tr, losses, p50, launches, peak
+
+
+def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, kingsnake_vol) -> dict:
+    """Phase 5e: the paper's scale on one card. Miranda at 18,180,000
+    Gaussians (``paper_scene``) at ``paper_gs_config(512)``, 8 ray-marched
+    views, 4 steps, densification off, then the busy share of one step; then
+    Kingsnake's 4M Gaussians (``kingsnake`` on ``kingsnake_vol``, phase 4's
+    host model) at 2048 px, 4 views, 3 steps, and the busy share of one
+    step. Returns the launches of both fits."""
+    from repro_torch.configs.gs_datasets import paper_scene
+    from repro_torch.data.views import ViewDataset
+
+    t0 = time.perf_counter()
+    host, n_surface, vol = paper_scene("miranda", PAPER_MIRANDA, seed)
+    log(f"paper scale: miranda {n_surface} surface points -> {host.means.shape[0]} Gaussians "
+        f"({time.perf_counter() - t0:.1f} s)")
+    data = ViewDataset(vol, n_views=PAPER_VIEWS, img_h=PAPER_RES, img_w=PAPER_RES, radius=3.0, device=dev)
+    tr, _, p50, launches, _ = paper_fit(dev, card, f"miranda 18.18M at {PAPER_RES} px", host, data, PAPER_RES,
+                                        PAPER_STEPS, counters)
+    cams_b, gt_b = next(iter(data.batches(4, steps=1)))
+    profile_step(lambda: tr.step_fn(tr.state, cams_b, gt_b), p50,
+                 label=f"paper scale step (miranda 18.18M, {PAPER_RES} px)")
+    del tr, data, host
+    t0 = time.perf_counter()
+    data = ViewDataset(kingsnake_vol, n_views=PAPER_HIGH_VIEWS, img_h=PAPER_HIGH_RES, img_w=PAPER_HIGH_RES,
+                       radius=3.0, device=dev)
+    torch.cuda.synchronize()
+    log(f"paper scale: {PAPER_HIGH_VIEWS} kingsnake views ray-marched at {PAPER_HIGH_RES} px "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tr, _, p50, more, _ = paper_fit(dev, card, f"kingsnake 4M at {PAPER_HIGH_RES} px", kingsnake, data,
+                                    PAPER_HIGH_RES, PAPER_HIGH_STEPS, counters)
+    cams_b, gt_b = next(iter(data.batches(4, steps=1)))
+    profile_step(lambda: tr.step_fn(tr.state, cams_b, gt_b), p50,
+                 label=f"paper scale step (kingsnake 4M, {PAPER_HIGH_RES} px)")
+    del tr, data
+    torch.cuda.empty_cache()
+    return {k: launches[k] + more[k] for k in launches}
+
+
+def paper_ranks_phase(dev, card: str, seed: int, counters: dict) -> dict:
+    """Miranda at 18,180,000 Gaussians across cards: the one-device run of
+    phase 5e (512 px, 8 views, 4 steps), then (1, 2) and (1, 4) in
+    ``projected`` mode with one rank per card over NCCL, their losses held
+    to one device at rtol 1e-5, the peak on the fullest rank printed."""
+    from repro_torch.configs.gs_datasets import paper_scene
+    from repro_torch.data.views import ViewDataset
+    from repro_torch.launch.mesh import spawn_ranks
+
+    host, _, vol = paper_scene("miranda", PAPER_MIRANDA, seed)
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
+    data = ViewDataset(vol, n_views=PAPER_VIEWS, img_h=PAPER_RES, img_w=PAPER_RES, radius=3.0, cache_dir=str(RANKS_DIR),
+                       device=dev)
+    tr, want, p50_one, _, peak_one = paper_fit(dev, card, f"miranda 18.18M at {PAPER_RES} px, one device", host, data,
+                                               PAPER_RES, PAPER_STEPS, counters)
+    del tr, data
+    torch.cuda.empty_cache()
+    out = {"one_device": {"losses": want, "step_ms_p50": p50_one, "peak_bytes": peak_one}}
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"paper scale ranks: {n_cards} card on this machine: miranda across cards not run")
+        return out
+    np.savez(RANKS_DIR / "miranda.npz", **{f: getattr(host, f) for f in host._fields})
+    del host
+    for n in [k for k in (2, 4) if k <= n_cards]:
+        spawn_ranks(_rank_worker, (n, "projected", PAPER_STEPS, PAPER_RES, PAPER_VIEWS, dev.type, 300.0, "miranda"), n,
+                    timeout_s=900)
+        got = json.loads((RANKS_DIR / f"losses_miranda_projected_{n}.json").read_text())
+        ok = np.allclose(got["losses"], want, rtol=1e-5, atol=0)
+        p50 = float(np.median(got["step_ms"][1:]))
+        log(f"paper scale ranks (1, {n}) projected over NCCL across {n} cards ({card}): miranda "
+            f"{PAPER_MIRANDA} Gaussians, {PAPER_RES} px, {PAPER_STEPS} steps: losses {got['losses']} vs one device "
+            f"{want}, within rtol 1e-5: {ok}; step ms (rank 0) {[round(x, 3) for x in got['step_ms']]} p50 of steps "
+            f"2-{PAPER_STEPS} {p50:.3f} vs one device {p50_one:.3f} (x{p50_one / p50:.3f}); peak per rank "
+            f"{got['peak_bytes']} B, fullest {max(got['peak_bytes'])} B (one device {peak_one} B)")
+        if not ok:
+            raise SystemExit(f"paper scale ranks: (1, {n}) miranda losses differ from one device beyond rtol 1e-5")
+        out[f"projected_1x{n}"] = {**got, "p50_ms": p50}
+    return out
 
 
 FRONTEND_CLIENTS, FRONTEND_REQUESTS, FRONTEND_WINDOW = 8, 8, 2  # benchmarks/frontend_load.py's defaults
@@ -1359,7 +1555,7 @@ def serve_ranks_phase(dev, card: str, host, cfg, args, counters: dict, one_devic
     memory above its start. The one-device server serves the same requests
     once more after the world-1 mesh (one device, mesh, one device), since
     serving is host-bound and its times drift within a call."""
-    from repro_torch.launch.mesh import make_gs_mesh
+    from repro_torch.launch.mesh import make_gs_mesh, spawn_ranks
     from repro_torch.obs import Obs
     from repro_torch.serve_gs import RenderServer
 
@@ -1415,18 +1611,8 @@ def serve_ranks_phase(dev, card: str, host, cfg, args, counters: dict, one_devic
         tag = f"{shape[0]}x{shape[1]}"
         n = shape[0] * shape[1]
         t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _serve_rank_worker, args=(shape, cfg.img_h, args.clients, args.requests, dev.type, 300.0), nprocs=n,
-            join=False, start_method="spawn")
-        deadline = time.perf_counter() + 600
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() > deadline:
-                    raise SystemExit(f"serve ranks: the {shape} mesh across cards did not finish in 600 s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.terminate()
+        spawn_ranks(_serve_rank_worker, (shape, cfg.img_h, args.clients, args.requests, dev.type, 300.0), n,
+                    timeout_s=600)
         res = json.loads((RANKS_DIR / f"serve_{tag}.json").read_text())
         frames = np.load(RANKS_DIR / f"serve_frames_{tag}.npy")
         same = frames.shape[0] == len(got) and all(np.array_equal(a, b) for a, b in zip(frames, got))
@@ -1456,7 +1642,8 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-views", type=int, default=2)
     ap.add_argument("--ranks-only", action="store_true",
                     help="build, make the scene and its training views, run phases 4b (serve ranks, with its own "
-                         "one-device server) and 5b (ranks) alone and print their result as JSON on the last line")
+                         "one-device server) and 5b (ranks), then Miranda 18.18M and in situ across cards, alone, "
+                         "and print their result as JSON on the last line")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1469,7 +1656,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' bmm stays float32
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.configs.gs_datasets import paper_gs_config, paper_scene
     from repro_torch.core import gaussians as G
     from repro_torch.core import projection as P
     from repro_torch.core import render as R
@@ -1528,7 +1715,7 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------- scene
     t0 = time.perf_counter()
-    host, n_surface, vol = kingsnake_scene(args.points, args.seed)
+    host, n_surface, vol = paper_scene("kingsnake", args.points, args.seed)
     log(f"scene: kingsnake {n_surface} surface points -> {host.means.shape[0]} Gaussians "
         f"({time.perf_counter() - t0:.1f} s)")
     cfg = paper_gs_config(args.res)
@@ -1550,6 +1737,9 @@ def main(argv=None) -> int:
     if args.ranks_only:
         result = {"serve_ranks": serve_ranks_phase(dev, card, host, cfg, args, counters, None),
                   "ranks": ranks_phase(dev, card, host, data, counters)}
+        del data
+        result["paper_scale_ranks"] = paper_ranks_phase(dev, card, args.seed, counters)
+        result["insitu_ranks"] = insitu_ranks_phase(dev, card, args.res)
         torch.distributed.destroy_process_group()
         print(json.dumps(result), flush=True)
         return 0
@@ -1949,6 +2139,9 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------- 5d. frontend
     frontend_launches = frontend_phase(dev, card, host, cfg, counters, INSITU_DIR / "seq")
 
+    # ---------------------------------------------------------- 5e. paper scale
+    paper_launches = paper_scale_phase(dev, card, counters, args.seed, host, vol)
+
     # ---------------------------------------------------------- 7. lm
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
                       ["--arch", "qwen3-0.6b", "--device", "cuda", "--seed", str(args.seed)], counters)
@@ -1959,7 +2152,7 @@ def main(argv=None) -> int:
     def by_path(i: int, name: str) -> dict:
         return {"serve": serve_launches[i], "serve_ranks": serve_ranks["launches"][name],
                 "train": train_launches[i], "ranks": ranks_launches[name], "insitu": insitu_launches[name],
-                "frontend": frontend_launches[name],
+                "frontend": frontend_launches[name], "paper_scale": paper_launches[name],
                 "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name]}
 
     kernels = [

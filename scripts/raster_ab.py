@@ -180,7 +180,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("raster_ab: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.configs.gs_datasets import paper_gs_config, paper_scene
     from repro_torch.core import gaussians as G, projection as P, render as R
     from repro_torch.kernels.tile_raster.ref import (composite_bwd_ref, composite_ref, composited_counts,
                                                      contrib_counts)
@@ -210,7 +210,7 @@ def main(argv) -> int:
                                    stream()) == 0
         return d
 
-    host, _, _ = cs.kingsnake_scene(4_000_000, 0)
+    host, _, _ = paper_scene("kingsnake", 4_000_000, 0)
     cfg = paper_gs_config(512)
     g = G.from_numpy(host, dev)
     cam = camera_slice(orbit_cameras(12, img_h=512, img_w=512, radius=3.0), 0)

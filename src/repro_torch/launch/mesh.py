@@ -7,6 +7,7 @@ TPU pod layout and has no counterpart here.
 from __future__ import annotations
 
 import datetime
+import time
 
 import torch
 import torch.distributed as dist
@@ -35,3 +36,20 @@ def make_gs_mesh(n_data: int, n_model: int, *, device) -> Mesh:
     """Mesh for distributed 3D-GS runs (paper scaling: 1/2/4 workers) over
     the initialized process group, whose world size must be n_data*n_model."""
     return Mesh(n_data, n_model, device)
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, *, timeout_s: float) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` spawned processes, one per rank
+    (``fn`` must be importable by name, as a module-level function), and
+    wait for all of them. Raises if a rank raises or exits non-zero (the
+    others are then stopped) or if they are not all done in ``timeout_s``."""
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"spawn_ranks: {nprocs} ranks of {fn.__name__} did not finish in {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()

@@ -811,3 +811,28 @@ def test_insitu_trainer_at_world_one_over_nccl_is_bitwise_one_device(nccl_world_
     assert [s.tolist() for s in one.reseed_log] == [s.tolist() for s in w1.reseed_log]
     for a, b in zip(tree_leaves(one.state), tree_leaves(w1.state)):
         assert torch.equal(a, b)
+
+
+def test_table1_one_worker_row_at_the_paper_scale(cuda_device, tmp_path):
+    """``benchmarks/table1_scaling_torch.py`` at one worker: Kingsnake's 4M
+    Gaussians at 512 px, 3 steps (1 warm-up) on the card: finite losses, 4
+    launches of each splatting kernel a step and none of attention, a peak
+    under 80 GB."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(repo / "benchmarks" / "table1_scaling_torch.py"), "--workers", "1",
+                          "--datasets", "kingsnake", "--res", "512", "--warmup", "1", "--steps", "2",
+                          "--out", str(tmp_path)], cwd=tmp_path, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(repo / "src")))
+    assert out.returncode == 0, (out.stdout + out.stderr)[-4000:]
+    (row,) = json.loads((tmp_path / "table1_rows.json").read_text())["rows"]
+    assert row["case"] == "kingsnake_512_1w" and row["fits"] and row["n_gaussians"] == 4_000_768
+    assert len(row["losses"]) == 3 and np.isfinite(row["losses"]).all()
+    assert row["launches"] == {"gsproject": 12, "tile_raster_fwd": 12, "tile_raster_bwd": 12, "flash_attention": 0}
+    assert 0 < max(row["peak_bytes"]) < 80e9 and row["fits_80gb"]
+    assert 0 < row["device_busy_ms"] and row["nccl_ms"] == 0 and 0 < row["busy_share"] <= 1

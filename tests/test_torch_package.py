@@ -53,7 +53,8 @@ def test_port_sources_never_import_jax_or_the_jax_package():
 
 def test_importing_every_port_module_loads_no_jax():
     assert {"repro_torch.analysis.tsan", "repro_torch.obs.export", "repro_torch.obs.slo", "repro_torch.frontend.gateway",
-            "repro_torch.frontend.sessions", "repro_torch.launch.frontend"} <= set(_port_modules())
+            "repro_torch.frontend.sessions", "repro_torch.launch.frontend", "repro_torch.obs.replay",
+            "repro_torch.obs.costmodel", "repro_torch.obs.autotune", "repro_torch.launch.tune"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"mods = {_port_modules()!r}\n"
