@@ -7,8 +7,10 @@ steps through ``GSTrainer``, on one device and on a mesh of ranks, stream
 a time-varying Miranda volume through the in situ trainer, its temporal
 store and a time-scrubbing server, serve both to TCP clients through the
 network frontend, train at the paper's scale (Miranda's 18.18M Gaussians
-on one card), then prefill and decode
-the full-width Qwen3-0.6B LM through the port's prefill and serve steps.
+on one card), then prefill, decode and
+train the full-width Qwen3-0.6B LM through the port's prefill, serve and
+train steps, and prefill, serve and train the full-width granite-moe
+(3.3B parameters, 40 experts top-8).
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
     python3 chip_smoke.py --ranks-only    # the phases across ranks alone, e.g. on several cards
@@ -127,9 +129,34 @@ Phases, in order (any failure exits non-zero):
      tokens); in float32, a 128-token prompt's last logits on the card
      against the CPU path and against the card's serve steps; the phase's
      peak memory;
-  6. the result, printed last (after phase 7): the kernels' JSON line (``launches`` from each
+  7b. lm training: Qwen3-0.6B at full width through ``make_train_step`` at
+     batch 4 x 4096 (the train_4k sequence; its global batch of 256 cut to
+     4), remat on: one warm-up and 3 timed steps with the launch counters
+     zeroed just before and read just after (2 x 28 attention launches a
+     step: the forward and the remat recompute), step ms p50, tokens/s,
+     peak memory, the busy share and the attention VJP's device time of one
+     profiled step, and the step's pieces timed alone (the forward, one
+     layer's attention plain VJP x 28, the chunked cross-entropy, AdamW);
+     in float32, one step at 1 x 128 tokens on the card against the CPU
+     path (loss rtol 1e-4, every gradient leaf within 1e-3 x its max |g|);
+     it fails on a non-finite loss or a wrong launch count;
+  7c. MoE: granite-moe-3b-a800m at full width (32 layers, d 1536, 40
+     experts top-8, bf16): the attention kernel against its plain version
+     at the prefill's and training's shapes (4 and 2 x 4096, 24/8 heads, hd
+     64, causal, float32 and bf16); ``make_prefill_step`` at 4 x 4096 (ms
+     p50, tokens/s, 32 attention launches a call, ``drop_frac`` per layer at
+     capacity 1,025), the serving CLI's loop at its defaults (ms/token, the
+     decode fold's ``drop_frac``; one serve step profiled: busy share,
+     device ops a token), ``make_train_step`` at batch 2 x 4096 (1
+     warm-up and 3 timed steps, 64 attention launches a step, peak memory);
+     in float32 at full widths but 4 layers, card against CPU: prefill
+     logits within 1e-3 x max |logit|, every (token, choice)'s dispatch
+     row equal (so the same dropped tokens), one train step as in 7b;
+  6. the result, printed last (after phase 7c): the kernels' JSON line (``launches`` from each
      kernel's main path: training for the splatting kernels, the LM prefill
      for attention; ``launches_by_path`` with every path's own counts,
+     ``lm_train``, ``moe_prefill``, ``moe_serve_cli`` and ``moe_train`` those
+     of phases 7b and 7c,
      ``serve_ranks`` the mesh server of phase 4b, ``ranks`` the sharded fits
      of phase 5b, ``insitu`` the stream, scrub and replay of phase 5c,
      ``frontend`` the TCP lap of phase 5d, ``paper_scale`` the two fits of
@@ -147,6 +174,7 @@ line is their result as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -254,13 +282,14 @@ def host_us(fn, iters: int = 200) -> float:
     return dt
 
 
-def profile_step(fn, wall_ms: float, top: int = 8, label: str = "train step") -> None:
+def profile_step(fn, wall_ms: float, top: int = 8, label: str = "train step"):
     """Device busy time of one ``fn()`` from a torch.profiler trace: the
     union of its kernels', copies' and fills' intervals on the card's
     timeline (``obs/devtime.py``; rows on several streams count once), its
     share of the same profiled call's wall time, and the kernels that take
     most of the device time. ``wall_ms`` is the unprofiled p50, printed
-    beside it. Says so when the trace holds no device time."""
+    beside it. Says so when the trace holds no device time, and then
+    returns None; else the profiler and the device-time summary."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.obs.devtime import device_time
@@ -275,7 +304,7 @@ def profile_step(fn, wall_ms: float, top: int = 8, label: str = "train step") ->
     d = device_time(prof, prof_wall_ms)
     if d["busy_ms"] <= 0:
         log(f"{label} profile: the trace holds no device time; device busy share not measured")
-        return
+        return None
     rows = sorted(((ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
                    if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0),
                   reverse=True)
@@ -288,6 +317,7 @@ def profile_step(fn, wall_ms: float, top: int = 8, label: str = "train step") ->
         + "; ".join(f"{k[:60]} x{c} {us / 1e3:.3f} ms" for us, c, k in rows[:top]))
     log(f"{label} profile, host side (self time): "
         + "; ".join(f"{k[:40]} x{c} {us / 1e3:.3f} ms" for us, c, k in host[:top]))
+    return prof, d
 
 
 def allclose_report(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
@@ -425,6 +455,59 @@ LM_CROSS_TOL = 1e-3             # float32 logits: max |difference| <= this x max
 LM_BATCH, LM_SEQ = 4, 4096      # the prefill step's batch and prompt length
 
 
+def flash_compare(label, q, k, v, kw, tol):
+    """The attention kernel's wrapper against its plain version on the same
+    card tensors. Fails on an entry outside ``tol`` (atol, rtol) or a
+    non-finite output; returns (max |difference|, the kernel's output)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    err, bad = allclose_report(got.float(), want.float(), *tol)
+    same = float((got == want).float().mean())
+    log(f"compare flash_attention {label} {tuple(q.shape)} kv {tuple(k.shape)} {str(q.dtype)[6:]} {kw}: "
+        f"max_abs_err {err:.3e}, entries outside atol {tol[0]}/rtol {tol[1]}: {bad} of {got.numel()}, "
+        f"bitwise equal share {same:.6f}")
+    if bad or not torch.isfinite(got).all():
+        raise SystemExit(f"flash_attention disagrees with its plain version ({label})")
+    return err, got
+
+
+def flash_model_check(label: str, cfg, b: int, s: int, dev, gen) -> None:
+    """The attention kernel against its plain version at ``cfg``'s
+    attention shape, causal over ``s`` tokens: in float32 (the CUDA-core
+    kernel) and in ``cfg``'s bfloat16 (the tensor-core kernel the model's
+    path launches)."""
+    q, k, v = (torch.randn(shape, device=dev, generator=gen) for shape in
+               ((b, s, cfg.n_heads, cfg.hd), (b, s, cfg.n_kv_heads, cfg.hd), (b, s, cfg.n_kv_heads, cfg.hd)))
+    flash_compare(label, q, k, v, dict(causal=True), FLASH_F32_TOL)
+    flash_compare(label, *(x.to(torch.bfloat16) for x in (q, k, v)), dict(causal=True), FLASH_BF16_TOL)
+
+
+@contextlib.contextmanager
+def moe_dispatches():
+    """Collect each MoE layer call's dispatch, wrapping ``moe.dispatch``
+    inside the block: per call, the share of (token, choice) pairs dropped
+    at capacity (a tensor on the card, no host sync) and each pair's row of
+    the dispatch buffer in token order."""
+    from repro_torch.models import moe
+
+    got, real = [], moe.dispatch
+
+    def spy(flat_e, e, cap):
+        order, dest, keep = real(flat_e, e, cap)
+        got.append({"drop_frac": 1.0 - torch.mean(keep.to(torch.float32)),
+                    "dest": torch.gather(dest, 1, torch.argsort(order, dim=-1, stable=True))})
+        return order, dest, keep
+
+    moe.dispatch = spy
+    try:
+        yield got
+    finally:
+        moe.dispatch = real
+
+
 def ptxas_entries(log_text: str) -> dict:
     """Per kernel entry of an ``nvcc -Xptxas -v`` log: registers, spill
     store and load bytes, keyed by the mangled name."""
@@ -466,29 +549,17 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
         return [torch.randn(shape, device=dev, generator=gen).to(dtype)
                 for shape in ((b, s, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd))]
 
-    def compare(label, q, k, v, kw, tol):
-        got = fa_ops.flash_attention(q, k, v, **kw)
-        want = attention_ref(q, k, v, **kw)
-        err, bad = allclose_report(got.float(), want.float(), *tol)
-        same = float((got == want).float().mean())
-        log(f"compare flash_attention {label} {tuple(q.shape)} kv {tuple(k.shape)} {str(q.dtype)[6:]} {kw}: "
-            f"max_abs_err {err:.3e}, entries outside atol {tol[0]}/rtol {tol[1]}: {bad} of {got.numel()}, "
-            f"bitwise equal share {same:.6f}")
-        if bad or not torch.isfinite(got).all():
-            raise SystemExit(f"flash_attention disagrees with its plain version ({label})")
-        return err, got
-
     # ------------------------------------------------ a. kernel vs plain
     for c in FLASH_CASES:
         b, s, skv, h, hkv, hd, causal, window = c
         for dtype, tol in ((torch.float32, FLASH_F32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
-            compare("case", *qkv(b, s, skv, h, hkv, hd, dtype), dict(causal=causal, window=window, q_offset=skv - s),
+            flash_compare("case", *qkv(b, s, skv, h, hkv, hd, dtype), dict(causal=causal, window=window, q_offset=skv - s),
                     tol)
     shape = (batch, seq, seq, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     q32, k32, v32 = qkv(*shape)
-    compare("model shape", q32, k32, v32, {}, FLASH_F32_TOL)
+    flash_compare("model shape", q32, k32, v32, {}, FLASH_F32_TOL)
     q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
-    bf16_err, out = compare("model shape", q, k, v, {}, FLASH_BF16_TOL)
+    bf16_err, out = flash_compare("model shape", q, k, v, {}, FLASH_BF16_TOL)
     if not torch.equal(fa_ops.flash_attention(q, k, v), out):
         raise SystemExit("flash_attention: two launches on the same inputs differ")
     log("flash_attention: two launches at the model shape bitwise equal")
@@ -624,6 +695,276 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations" if b_ops >= b_bytes else "bytes",
              "library_ms": lib_ms, "float32_ms": f32_ms}
     return {"entry": entry, "lm_prefill": prefill_launches, "lm_serve_cli": cli_launches}
+
+
+LM_TRAIN_BATCH = 4              # the train_4k sequence; its global batch of 256 cut to 4 for one card
+MOE_TRAIN_BATCH = 2             # granite-moe's weights, gradients and AdamW moments take ~40 GB
+TRAIN_STEPS = 3                 # timed steps after one warm-up
+TRAIN_LOSS_RTOL = 1e-4          # float32 card vs CPU: one step's loss
+TRAIN_GRAD_TOL = 1e-3           # float32 card vs CPU: every gradient leaf, max |difference| <= this x max |g|
+CROSS_SEQ = 128                 # tokens per row of the float32 card-vs-CPU checks
+
+
+def train_batch(cfg, b: int, s: int, dev, gen) -> dict:
+    return {k: torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen) for k in ("tokens", "labels")}
+
+
+def run_train_steps(label: str, card: str, step, params, opt, batch: dict, counters: dict, want_attn: int) -> dict:
+    """One warm-up and ``TRAIN_STEPS`` timed steps of ``step``; the launch
+    counters zeroed just before the timed steps and read just after (``want_attn``
+    attention launches per step, the other kernels none); wall ms per step
+    (ending in the loss read), tokens/s and peak memory. Fails on a
+    non-finite loss or a wrong count."""
+    dev = batch["tokens"].device
+    b, s = batch["tokens"].shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt, m = step(params, opt, batch)
+    losses = [float(m["loss"])]
+    for c in counters.values():
+        c.n = 0
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: c.n for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    p50 = float(np.median(times))
+    log(f"{label} train step batch {b} x {s} tokens ({card}): losses {[round(x, 6) for x in losses]} (warm-up first), "
+        f"ms {[round(x, 3) for x in times]}, p50 {p50:.3f} ms, {b * s / p50 * 1e3:.1f} tokens/s; max_memory_allocated "
+        f"{peak} B ({peak / 2**30:.2f} GiB); launches over {TRAIN_STEPS} steps {launches} (want flash_attention "
+        f"{want_attn} per step, the forward and the remat recompute; the others 0)")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{label} train step: non-finite loss {losses}")
+    want = {name: (want_attn * TRAIN_STEPS if name == "flash_attention" else 0) for name in counters}
+    if launches != want:
+        raise SystemExit(f"{label} train step launches {launches}, want {want}")
+    return {"params": params, "opt": opt, "p50": p50, "peak": peak, "launches": launches}
+
+
+def attention_vjp_profile(prof) -> str:
+    """Device ms under the attention's backward (its plain version's VJP,
+    recomputed from the saved inputs) and in the kernel's own launches, from
+    a profiled step."""
+    # the autograd engine's node events only: the backward's own op event
+    # nests inside one and would count its kernels twice
+    vjp_ms = sum(ev.device_time_total for ev in prof.events()
+                 if ev.name.startswith("autograd::engine::evaluate_function") and "FlashAttentionBackward" in ev.name
+                 and ev.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    kern_ms = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ("attention_tc_kernel" in ev.key or "flash_attention_kernel" in ev.key)) / 1e3
+    return (f"attention plain VJP (FlashAttentionBackward nodes) {vjp_ms:.3f} ms of device time, the attention "
+            f"kernel's launches (forward and recompute) {kern_ms:.3f} ms")
+
+
+def cross_check_train(label: str, cfg32, dev, seed: int, gen, b: int) -> None:
+    """One float32 train step on the card and on the CPU from the same
+    weights and batch: the loss within ``TRAIN_LOSS_RTOL``, every gradient
+    leaf (read from AdamW's first moment, g = m / 0.1) within
+    ``TRAIN_GRAD_TOL`` x its max |g|."""
+    from repro_torch.models import api, lm
+    from repro_torch.models.params import tree_leaves, tree_to
+
+    p_card = lm.init_params(cfg32, seed=seed, device=dev)
+    p_host = tree_to(p_card, "cpu")  # before the card's step updates its weights in place
+    batch = train_batch(cfg32, b, CROSS_SEQ, dev, gen)
+    step = api.make_train_step(cfg32)
+    res = []
+    t0 = time.perf_counter()
+    for p, d in ((p_card, dev), (p_host, torch.device("cpu"))):
+        _, opt, m = step(p, api.adamw_init(p), {k: v.to(d) for k, v in batch.items()})
+        res.append((float(m["loss"]), [x.cpu() / 0.1 for x in tree_leaves(opt["m"])]))
+        del opt
+    (l_k, g_k), (l_c, g_c) = res
+    errs = [float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30) for a, c in zip(g_k, g_c)]
+    log(f"{label} cross-check float32 train step ({b} x {CROSS_SEQ} tokens, {cfg32.n_layers} layers), card vs CPU: "
+        f"loss {l_k:.7f} vs {l_c:.7f} (rtol {TRAIN_LOSS_RTOL:g}); gradients over {len(errs)} leaves: worst max "
+        f"|difference| / max |g| {max(errs):.3e} (tolerance {TRAIN_GRAD_TOL:g}); {time.perf_counter() - t0:.1f} s")
+    if abs(l_k - l_c) > TRAIN_LOSS_RTOL * abs(l_c) or max(errs) > TRAIN_GRAD_TOL:
+        raise SystemExit(f"{label}: the card's train step disagrees with the CPU path")
+
+
+def lm_train_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, counters: dict) -> dict:
+    """Phase 7b: ``make_train_step`` at ``cfg``'s widths. Returns the
+    attention launches of the timed steps."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import api, lm
+    from repro_torch.models import common as C
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"lm train: {cfg.name} {cfg.n_layers}L d={cfg.d_model} vocab {cfg.vocab} {cfg.dtype}, {n_params} parameters "
+        f"from seed {seed}, remat {cfg.remat}, AdamW moments float32")
+    data = train_batch(cfg, batch, seq, dev, gen)
+    step = api.make_train_step(cfg)
+    run = run_train_steps("lm", card, step, params, api.adamw_init(params), data, counters, 2 * cfg.n_layers)
+    params, opt = run["params"], run["opt"]
+    got = profile_step(lambda: step(params, opt, data), run["p50"], label="lm train step")
+    if got:
+        log(f"lm train step profile: {attention_vjp_profile(got[0])}")
+
+    # the step's pieces timed alone (wall per call, the device drained after
+    # each: each piece is device-bound): the forward with grad on (remat keeps
+    # each layer's input), one layer's attention plain VJP x n_layers, the
+    # chunked cross-entropy forward and backward, AdamW
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    fwd_ms = wall_ms(lambda: api.compute_loss(cfg, params, data), 2)
+    for p in leaves:
+        p.requires_grad_(False)
+    shape = (batch, seq, cfg.n_heads, cfg.hd)
+    q, k, v = (torch.randn(sh, device=dev, generator=gen).to(C.dtype_of(cfg)).requires_grad_()
+               for sh in (shape, (batch, seq, cfg.n_kv_heads, cfg.hd), (batch, seq, cfg.n_kv_heads, cfg.hd)))
+    gout = torch.randn(shape, device=dev, generator=gen).to(C.dtype_of(cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    vjp_ms = wall_ms(lambda: torch.autograd.grad(attention_ref(q, k, v), (q, k, v), gout), 2)
+    vjp_peak = torch.cuda.max_memory_allocated(dev) - base
+    kern_ms = cuda_ms(lambda: fa_ops.launch(q.detach(), k.detach(), v.detach()), 5, "flash_attention kernel")
+    del q, k, v, gout
+    xh = torch.randn((batch, seq, cfg.d_model), device=dev, generator=gen).to(C.dtype_of(cfg)).requires_grad_()
+    emb = params["embed"]["embedding"].detach().requires_grad_()
+    ce_ms = wall_ms(lambda: torch.autograd.grad(C.chunked_ce_loss({"embedding": emb}, xh, data["labels"]),
+                                                (xh, emb)), 2)
+    del xh, emb
+    zeros = tree_map(torch.zeros_like, params)
+    adam_ms = wall_ms(lambda: api.adamw_update(params, zeros, opt), 2)
+    del zeros
+    log(f"lm train step split ({card}; wall per call of each piece alone, device-bound): step p50 {run['p50']:.3f} ms "
+        f"= forward with grad {fwd_ms:.3f} ms (x2 with the remat recompute) + attention plain VJP {vjp_ms:.3f} ms a "
+        f"layer x {cfg.n_layers} = {vjp_ms * cfg.n_layers:.3f} ms (its transient memory {vjp_peak} B; the kernel's "
+        f"forward {kern_ms:.4f} ms a layer) + cross-entropy forward and backward {ce_ms:.3f} ms + AdamW "
+        f"{adam_ms:.3f} ms + the rest of the backward "
+        f"{run['p50'] - 2 * fwd_ms - vjp_ms * cfg.n_layers - ce_ms - adam_ms:.3f} ms")
+    del params, opt, data
+
+    cross_check_train("lm", dataclasses.replace(cfg, dtype="float32"), dev, seed + 2, gen, 1)
+    log(f"lm train phase ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return run["launches"]
+
+
+def moe_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: list, counters: dict) -> dict:
+    """Phase 7c: the MoE decoder ``cfg`` at its widths: the attention
+    kernel at its shapes, prefill, the serving CLI's loop, training, and
+    float32 checks against the CPU at 4 layers. Returns each path's launch
+    counts."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import api, lm
+    from repro_torch.models.params import tree_leaves, tree_to
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    cap = int((seq * cfg.top_k / cfg.n_experts) * cfg.capacity_factor) + 1
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"moe: {cfg.name} {cfg.n_layers}L d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.hd}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} d_ff {cfg.moe_d_ff}, vocab {cfg.vocab} {cfg.dtype}: {n_params} "
+        f"parameters ({cfg.active_param_count()} active a token) from seed {seed}")
+
+    # ------------------------------------------------ the attention kernel at the prefill's and training's shapes
+    for b in (batch, MOE_TRAIN_BATCH):
+        flash_model_check("moe shape", cfg, b, seq, dev, gen)
+
+    # ------------------------------------------------ prefill
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=dev, generator=gen)
+    prefill = api.make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    calls = 3
+    for c in counters.values():
+        c.n = 0
+    times = []
+    with moe_dispatches() as rec:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    prefill_launches = {name: c.n for name, c in counters.items()}
+    p50 = float(np.median(times))
+    drops = [float(a["drop_frac"]) for a in rec[:cfg.n_layers]]
+    log(f"moe prefill batch {batch} x {seq} tokens ({card}): ms {[round(x, 3) for x in times]}, p50 {p50:.3f} ms, "
+        f"{batch * seq / p50 * 1e3:.1f} prompt tokens/s; max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B; "
+        f"logits finite {bool(torch.isfinite(logits).all())}; launches {prefill_launches} (want flash_attention "
+        f"{cfg.n_layers} per call x {calls}); capacity {cap} a expert and row; drop_frac per layer "
+        f"{[round(x, 5) for x in drops]} (mean {np.mean(drops):.5f})")
+    want = {name: (cfg.n_layers * calls if name == "flash_attention" else 0) for name in counters}
+    if logits.shape != (batch, 1, cfg.vocab) or not torch.isfinite(logits).all() or prefill_launches != want:
+        raise SystemExit(f"moe prefill: logits {tuple(logits.shape)}, launches {prefill_launches}, want {want}")
+    profile_step(lambda: prefill(params, {"tokens": tokens}), p50, label="moe prefill step")
+    del tokens, logits, rec
+
+    # ------------------------------------------------ the serving CLI's loop
+    for c in counters.values():
+        c.n = 0
+    with moe_dispatches() as rec:
+        res = serve_cli.main(cli_argv)
+    torch.cuda.synchronize()
+    cli_launches = {name: c.n for name, c in counters.items()}
+    n_prompt, n_gen = res["prompt"].shape[1], res["ids"].shape[1]
+    b_cli = res["prompt"].shape[0]
+    fold = [float(a["drop_frac"]) for a in rec]
+    decode_ms = res["decode_s"] / max(n_gen - 1, 1) * 1e3
+    log(f"moe serve CLI {cli_argv} ({card}): prefill {res['prefill_s'] * 1e3:.3f} ms over {n_prompt} serve steps, "
+        f"decode {decode_ms:.3f} ms/token; ids {res['ids'].tolist()}; launches {cli_launches} (decode attention is "
+        f"plain PyTorch); the decode fold (batch {b_cli} as one dispatch group, capacity "
+        f"{int((b_cli * cfg.top_k / cfg.n_experts) * cfg.capacity_factor) + 1}): drop_frac over {len(fold)} layer "
+        f"calls mean {np.mean(fold):.5f}, max {max(fold):.5f}")
+    if (res["ids"].shape != (b_cli, n_gen) or any(cli_launches.values())
+            or len(fold) != cfg.n_layers * (n_prompt + n_gen - 1)):
+        raise SystemExit(f"moe serve CLI: ids {res['ids'].shape}, launches {cli_launches}, {len(fold)} MoE calls")
+    # one decode step at the CLI's shapes, n_prompt + 1 tokens into its cache
+    serve = api.make_serve_step(cfg)
+    cache = api.init_cache(cfg, b_cli, n_prompt + n_gen, device=dev)
+    tok = torch.as_tensor(res["ids"][:, :1], device=dev)
+    for t in range(n_prompt + 1):
+        serve(params, cache, tok, t)
+    profile_step(lambda: serve(params, cache, tok, n_prompt + 1), decode_ms, label="moe serve step")
+    del res, rec, cache
+
+    # ------------------------------------------------ training
+    step = api.make_train_step(cfg)
+    data = train_batch(cfg, MOE_TRAIN_BATCH, seq, dev, gen)
+    run = run_train_steps("moe", card, step, params, api.adamw_init(params), data, counters, 2 * cfg.n_layers)
+    params, opt = run["params"], run["opt"]
+    got = profile_step(lambda: step(params, opt, data), run["p50"], label="moe train step")
+    if got:
+        log(f"moe train step profile: {attention_vjp_profile(got[0])}")
+    del params, opt, data
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ float32, full widths, 4 layers: card vs CPU
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=4)
+    p32 = lm.init_params(cfg32, seed=seed + 3, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, CROSS_SEQ), device=dev, generator=gen)
+    step32 = api.make_prefill_step(cfg32)
+    out = []
+    for p, d in ((p32, dev), (tree_to(p32, "cpu"), torch.device("cpu"))):
+        with moe_dispatches() as rec:
+            lg = step32(p, {"tokens": toks.to(d)}).float().cpu()
+        out.append((lg, [r["dest"].cpu() for r in rec], [float(r["drop_frac"]) for r in rec]))
+    (lg_k, dest_k, drop_k), (lg_c, dest_c, drop_c) = out
+    err, scale = float((lg_k - lg_c).abs().max()), float(lg_c.abs().max())
+    same = len(dest_k) == len(dest_c) == cfg32.n_layers and all(torch.equal(a, b_) for a, b_ in zip(dest_k, dest_c))
+    log(f"moe cross-check float32 prefill (2 x {CROSS_SEQ} tokens, {cfg32.n_layers} layers), card vs CPU: max_abs_err "
+        f"{err:.3e}, relative to max |logit| {scale:.4f}: {err / scale:.3e} (tolerance {LM_CROSS_TOL:g}); the same "
+        f"dispatch (every pair's buffer row, the dropped ones included) {same}; drop_frac card {drop_k}, CPU {drop_c}")
+    if not err <= LM_CROSS_TOL * scale or not same:
+        raise SystemExit("moe cross-check failed: the card's prefill disagrees with the CPU path")
+    del p32
+    cross_check_train("moe", cfg32, dev, seed + 4, gen, 2)
+    log(f"moe phase ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return {"moe_prefill": prefill_launches, "moe_serve_cli": cli_launches, "moe_train": run["launches"]}
 
 
 RANKS_STEPS = 3
@@ -2146,6 +2487,15 @@ def main(argv=None) -> int:
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
                       ["--arch", "qwen3-0.6b", "--device", "cuda", "--seed", str(args.seed)], counters)
 
+    # ---------------------------------------------------------- 7b. lm training
+    log(f"before phase 7b: memory_allocated {torch.cuda.memory_allocated(dev)} B")
+    lm_train_launches = lm_train_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_TRAIN_BATCH,
+                                       LM_SEQ, counters)
+
+    # ---------------------------------------------------------- 7c. moe
+    moe_res = moe_phase(dev, card, args.seed, get_arch("granite-moe-3b-a800m").config(), LM_BATCH, LM_SEQ,
+                        ["--arch", "granite-moe-3b-a800m", "--device", "cuda", "--seed", str(args.seed)], counters)
+
     # ---------------------------------------------------------- 6. result
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
@@ -2153,7 +2503,8 @@ def main(argv=None) -> int:
         return {"serve": serve_launches[i], "serve_ranks": serve_ranks["launches"][name],
                 "train": train_launches[i], "ranks": ranks_launches[name], "insitu": insitu_launches[name],
                 "frontend": frontend_launches[name], "paper_scale": paper_launches[name],
-                "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name]}
+                "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name],
+                "lm_train": lm_train_launches[name], **{path: moe_res[path][name] for path in moe_res}}
 
     kernels = [
         {"name": "gsproject", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",

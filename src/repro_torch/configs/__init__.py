@@ -2,15 +2,20 @@
 the LM architectures ported so far, resolved by ``--arch <id>`` here.
 
 The JAX package's registry lists ten architectures; the port lists those
-whose layers it runs (dense decoders). Any other id raises ``KeyError``.
+whose layers it runs: the dense decoders and the MoE decoders. The SSM,
+xLSTM, whisper and VLM ids raise ``KeyError``.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = [
+    "granite_3_8b",
     "gemma3_27b",
+    "granite_moe_3b_a800m",
+    "kimi_k2_1t_a32b",
     "qwen3_0_6b",
+    "moonshot_v1_16b_a3b",
 ]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

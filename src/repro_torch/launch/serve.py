@@ -1,14 +1,17 @@
 """Batched LM serving CLI (PyTorch port): prefill by decode steps, then
 cached greedy decode.
 
-The JAX package's ``launch/serve.py`` for the dense decoders the port runs
-(``--arch qwen3-0.6b`` or ``gemma3-27b``). Weights are random from
+The JAX package's ``launch/serve.py`` for the decoders the port runs: dense
+(``--arch qwen3-0.6b``, ``gemma3-27b``, ``granite-3-8b``) and MoE
+(``granite-moe-3b-a800m``, ``moonshot-v1-16b-a3b``, ``kimi-k2-1t-a32b``, the
+last only at ``--smoke``: its 1T parameters fit no single card). Weights are random from
 ``--seed``, drawn on the device, and the prompt is random from an explicit
 ``torch.Generator`` seeded with it. Runs on the card by default and refuses
 when there is none; ``--device cpu`` runs the plain PyTorch versions.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu \\
       --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
 """
 from __future__ import annotations

@@ -1,12 +1,14 @@
-"""Shared transformer building blocks of the dense decoders (PyTorch port).
+"""Shared transformer building blocks of the LM decoders (PyTorch port).
 
 The JAX package's ``models/common.py``: pure functions on parameter
 dictionaries whose keys are the JAX pytree's. Attention over a prompt goes
 through the attention kernel's wrapper (``kernels/flash_attention``), which
 runs the hand-written CUDA kernel on the card and the plain chunked online
-softmax on the CPU. One-token decode attention is plain PyTorch, as the JAX
-package computes it outside any Pallas kernel. The JAX code's sharding
+softmax on the CPU, in the forward and in a training step's recompute.
+One-token decode attention is plain PyTorch, as the JAX package computes it
+outside any Pallas kernel. The JAX code's sharding
 annotations (``lshard``) are no-ops without a mesh and are dropped here.
+``chunked_ce_loss`` is the training loss; M-RoPE (the VLM's) is not ported.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import MASKED
@@ -162,3 +165,37 @@ def embed_lookup(p, tokens):
 
 def lm_logits(p_embed, x):
     return x @ p_embed["embedding"].T
+
+
+def chunked_ce_loss(p_embed, x, labels, *, chunk: int = 512, z_loss: float = 0.0):
+    """Mean cross-entropy over the valid labels (label -1 is ignored), plus
+    ``z_loss`` x logsumexp^2, over sequence chunks: with grad on, each
+    chunk is recomputed in the backward, so no (B, chunk, V) float32 logits
+    outlive their chunk (the JAX package checkpoints the chunk step)."""
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+
+    def step(xc, lc):
+        logits = lm_logits(p_embed, xc).to(torch.float32)  # (B,chunk,V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
+        valid = lc >= 0
+        nll = torch.where(valid, lse - gold, 0.0)
+        if z_loss:
+            nll = nll + torch.where(valid, z_loss * lse**2, 0.0)
+        return torch.sum(nll), torch.sum(valid)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for lo in range(0, x.shape[1], chunk):
+        xc, lc = x[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(step, xc, lc, use_reentrant=False, preserve_rng_state=False)
+        else:
+            nll, n = step(xc, lc)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1)

@@ -1,44 +1,53 @@
-"""Model assembly of the dense decoders (PyTorch port of ``models/lm.py``).
+"""Model assembly of the dense and MoE decoders (PyTorch port of
+``models/lm.py``).
 
 A model is an embedding and a stack of layers. Parameters are nested
 dictionaries with the JAX pytree's layout and keys: a homogeneous run of
 layers is stacked with a leading layer dim under ``units/slot<i>`` (the JAX
 package scans over it; here a Python loop indexes it), a heterogeneous
 pattern that repeats once lives in ``flat_layers``, and the remainder of a
-pattern in ``rem_layers``. The dense kinds ``attn_global`` and
-``attn_local`` (sliding window, ring-buffer cache) are ported; MoE, SSM,
-xLSTM and the encoder-decoder and VLM assemblies are not (``ROADMAP.md``,
-queue A10).
+pattern in ``rem_layers``. The attention kinds ``attn_global`` and
+``attn_local`` (sliding window, ring-buffer cache) are ported, with a
+SwiGLU or a Mixture-of-Experts feed-forward (``models/moe.py``). When
+``cfg.remat`` is set and grad is on, each stacked unit is recomputed in the
+backward (``torch.utils.checkpoint``), as the JAX package wraps its scanned
+unit in ``jax.checkpoint``. The SSM (zamba), xLSTM, whisper and VLM
+assemblies are not ported (``ROADMAP.md``, queue A10).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import common as C
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 ATTN_KINDS = ("attn_global", "attn_local")
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md, queue A10)")
+    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md, queue A10 lists what is "
+                               "left: SSM/zamba, xLSTM, whisper, VLM)")
 
 
 # ------------------------------------------------------------ block defs
 def _layer_init(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype):
     if kind not in ATTN_KINDS:
         raise _not_ported(f"layer kind {kind!r}")
-    if cfg.is_moe:
-        raise _not_ported("the MoE feed-forward")
     d = cfg.d_model
-    return {
+    p = {
         "ln1": C.rmsnorm_init(d, dtype, gen.device),
         "attn": C.attn_init(gen, cfg, dtype),
         "ln2": C.rmsnorm_init(d, dtype, gen.device),
-        "mlp": C.mlp_init(gen, d, cfg.d_ff, dtype),
     }
+    if cfg.is_moe:
+        p["moe"] = MOE.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = C.mlp_init(gen, d, cfg.d_ff, dtype)
+    return p
 
 
 def _window(cfg: ModelConfig, kind: str):
@@ -47,11 +56,19 @@ def _window(cfg: ModelConfig, kind: str):
     return cfg.sliding_window if kind == "attn_local" else None
 
 
+def _ffn(cfg: ModelConfig, p, y):
+    """The feed-forward half of a layer; the MoE aux losses are dropped, as
+    the JAX package drops them."""
+    if cfg.is_moe:
+        return MOE.moe_apply(p["moe"], cfg, y)[0]
+    return C.mlp(p["mlp"], y)
+
+
 def _layer_train(cfg: ModelConfig, kind: str, p, x, positions):
     h = C.attention_train(p["attn"], cfg, C.rmsnorm(p["ln1"], x, cfg.norm_eps), positions,
                           window=_window(cfg, kind))
     x = x + h
-    return x + C.mlp(p["mlp"], C.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + _ffn(cfg, p, C.rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
 def _layer_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
@@ -59,7 +76,7 @@ def _layer_decode(cfg: ModelConfig, kind: str, p, x, cache, pos: int):
     h, ck, cv = C.attention_decode(p["attn"], cfg, C.rmsnorm(p["ln1"], x, cfg.norm_eps), cache["k"], cache["v"],
                                    pos, window=_window(cfg, kind))
     x = x + h
-    return x + C.mlp(p["mlp"], C.rmsnorm(p["ln2"], x, cfg.norm_eps)), {"k": ck, "v": cv}
+    return x + _ffn(cfg, p, C.rmsnorm(p["ln2"], x, cfg.norm_eps)), {"k": ck, "v": cv}
 
 
 def _layer_cache_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int, dtype, device):
@@ -98,8 +115,9 @@ def uses_units(cfg: ModelConfig) -> bool:
     return cfg.scan_layers and layer_plan(cfg)[1] > 1
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.is_moe:
+def check_ported(cfg: ModelConfig) -> None:
+    """Refuse the architectures whose assembly the port lacks."""
+    if cfg.arch_type not in ("dense", "moe"):
         raise _not_ported(f"the {cfg.arch_type!r} architecture of {cfg.name}")
 
 
@@ -115,7 +133,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters from ``seed``, drawn on ``device``, in the JAX
     package's layout, distributions and dtype (the values differ: the two
     packages' generators differ)."""
-    check_dense(cfg)
+    check_ported(cfg)
     dtype = C.dtype_of(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     unit, n_units, rem = layer_plan(cfg)
@@ -134,22 +152,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return params
 
 
-def unit_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter or cache tree (views, no copies)."""
+def unbind_units(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter or cache tree, as views (a
+    decode step writes its caches through them). Under autograd one
+    ``unbind`` stacks the layers' gradients once, where indexing layer by
+    layer would write a zeroed gradient of the whole stack for each."""
     if isinstance(tree, dict):
-        return {k: unit_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: unbind_units(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
-# ------------------------------------------------------------ forward (prompt)
+# ------------------------------------------------------------ forward (train, prompt)
+def _unit_forward(cfg: ModelConfig, unit: list, unit_params: dict, x, positions):
+    for i, kind in enumerate(unit):
+        x = _layer_train(cfg, kind, unit_params[f"slot{i}"], x, positions)
+    return x
+
+
 def backbone_train(cfg: ModelConfig, params, x, positions):
-    """Run the decoder stack on embeddings x (B,S,d)."""
-    check_dense(cfg)
+    """Run the decoder stack on embeddings x (B,S,d). With ``cfg.remat`` and
+    grad on, each stacked unit keeps only its input for the backward and is
+    recomputed there."""
+    check_ported(cfg)
     unit, n_units, rem = layer_plan(cfg)
     if "units" in params:
-        for u in range(n_units):
-            for i, kind in enumerate(unit):
-                x = _layer_train(cfg, kind, unit_slice(params["units"][f"slot{i}"], u), x, positions)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for up in unbind_units(params["units"], n_units):
+            if remat:
+                x = checkpoint(_unit_forward, cfg, unit, up, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _unit_forward(cfg, unit, up, x, positions)
     else:
         for i, lp in enumerate(params.get("flat_layers", [])):
             x = _layer_train(cfg, unit[i % len(unit)], lp, x, positions)

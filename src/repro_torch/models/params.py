@@ -44,5 +44,6 @@ def params_from_jax(tree, device="cuda"):
 
 
 def tree_to(tree, device):
-    """A copy of a parameter (or cache) tree on ``device``."""
-    return tree_map(lambda x: x.to(device), tree)
+    """A copy of a parameter (or cache) tree on ``device`` (a copy also when
+    the tree is there already: the train step updates its tree in place)."""
+    return tree_map(lambda x: x.to(device, copy=True), tree)

@@ -6,7 +6,9 @@ from a checkpoint the port's training CLI wrote, each at 32 px (as
 ``examples/insitu_timeseries_torch.py --smoke`` streams two timesteps into
 the in situ trainer and scrubs them; and the frontend load benchmark's
 mirror (``benchmarks/frontend_load_torch.py --smoke --device cpu``) serves
-its trace in process and over TCP with nothing shed, dropped or refused."""
+its trace in process and over TCP with nothing shed, dropped or refused;
+and ``examples/serve_lm_torch.py`` decodes greedily at a dense and an MoE
+smoke config."""
 import json
 import os
 import subprocess
@@ -14,6 +16,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -89,3 +92,14 @@ def test_frontend_load_mirror_smoke(tmp_path):
     assert report["wire"]["tile_frames"] > 0 and report["trace"]["spans"] > 0
     rec = json.loads(out.read_text())
     assert rec["bench"] == "frontend_load" and rec["metrics"]["shed"] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_serve_lm_mirror_decodes(tmp_path, arch):
+    stdout = _run([str(REPO / "examples" / "serve_lm_torch.py"), "--arch", arch, "--device", "cpu", "--tokens", "6"],
+                  tmp_path)
+    lines = stdout.splitlines()
+    assert lines[0].startswith(f"{arch} (reduced): 2L d=256 arch=")
+    assert lines[-1] == "ok: cache-backed batched decode ran 6 steps"
+    ids = np.array([[int(v) for v in ln.strip(" []").split()] for ln in lines[2:-1]])
+    assert ids.shape == (4, 6)

@@ -6,7 +6,8 @@ the sharded train step on a world-1 NCCL mesh bitwise against the
 one-device step (and across cards where there are two or more), the mesh
 render server on a world-1 NCCL mesh (and on (2, 1) across cards) bitwise
 against the one-device server, the LM prefill step through the
-attention kernel against the CPU, and a small in situ run (the warm-start
+attention kernel against the CPU, ``moe_apply`` and a remat train step
+(dense and MoE) against the CPU, and a small in situ run (the warm-start
 trainer over two timesteps) against the CPU and, on a world-1 NCCL mesh,
 bitwise against one device.
 
@@ -19,6 +20,8 @@ the JAX parity of the plain versions is held by the other
 
     PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,7 +49,7 @@ from repro_torch.kernels.gsproject.ref import project_ref
 from repro_torch.kernels.tile_raster import ops as tr_ops
 from repro_torch.kernels.tile_raster.ref import composite_bwd_ref, composite_ref, composited_counts, contrib_counts
 from repro_torch.launch.mesh import init_ranks, make_gs_mesh
-from repro_torch.models import api, lm
+from repro_torch.models import api, lm, moe
 from repro_torch.models.params import tree_to
 from repro_torch.serve_gs import RenderServer, make_clients, run_load, stack_cameras
 from repro_torch.utils.tree import tree_leaves
@@ -753,6 +756,59 @@ def test_smoke_prefill_on_card_matches_cpu(cuda_device, arch):
     torch.cuda.synchronize()
     assert fa_ops.launch_count.n == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+
+@pytest.mark.parametrize("zero_router", [False, True])
+def test_moe_apply_on_card_matches_cpu(cuda_device, zero_router):
+    """``moe_apply`` at the granite-moe smoke config (float32, capacity 1.0,
+    so pairs drop) with the torch ops on the card against the CPU: the
+    output, the aux losses and the same dropped share. With the router
+    zeroed every gate ties: the card keeps the lower expert ids, as
+    ``jax.lax.top_k`` does."""
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").smoke_config(), capacity_factor=1.0)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (2, 64, cfg.d_model)).astype(np.float32))
+    if zero_router:
+        params["router"].zero_()
+    want, want_aux = moe.moe_apply(params, cfg, x)
+    got, got_aux = moe.moe_apply(tree_to(params, cuda_device), cfg, x.to(cuda_device))
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5 * float(want.abs().max()), rtol=0)
+    assert float(got_aux["drop_frac"]) == float(want_aux["drop_frac"]) > 0
+    for key in ("lb_loss", "router_z"):
+        np.testing.assert_allclose(float(got_aux[key]), float(want_aux[key]), rtol=1e-5)
+    if zero_router:
+        logits = x.to(cuda_device) @ params["router"].to(cuda_device)
+        idx = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True)[1][..., :cfg.top_k]
+        assert (idx.cpu() == torch.arange(cfg.top_k)).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m"])
+def test_train_step_on_card_matches_cpu_and_recomputes_attention(cuda_device, arch):
+    """One ``make_train_step`` at the smoke config (float32, remat on) on the
+    card against the CPU: the loss at rtol 1e-5, the gradient (read from
+    AdamW's first moment, g = m / 0.1) at atol 2e-5·max|g|, rtol 2e-4;
+    the attention kernel launches twice per layer, the forward and the
+    remat recompute."""
+    cfg = get_arch(arch).smoke_config()
+    assert cfg.remat
+    r = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(r.integers(0, cfg.vocab, (2, 64))) for k in ("tokens", "labels")}
+    step = api.make_train_step(cfg)
+    res = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        p = tree_to(lm.init_params(cfg, seed=0, device="cpu"), dev)  # the step updates its parameters in place
+        before = fa_ops.launch_count.n
+        _, opt, m = step(p, api.adamw_init(p), {k: v.to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fa_ops.launch_count.n - before == 2 * cfg.n_layers
+        res[dev.type] = (float(m["loss"]), [x.cpu() / 0.1 for x in tree_leaves(opt["m"])])
+    (l_c, g_c), (l_k, g_k) = res["cpu"], res["cuda"]
+    np.testing.assert_allclose(l_k, l_c, rtol=1e-5)
+    for a, b_ in zip(g_k, g_c):
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=2e-5 * float(b_.abs().max()), rtol=2e-4)
 
 
 

@@ -204,13 +204,13 @@ def test_get_arch_aliases_and_unported_archs():
         assert get_arch(alias).__name__ == "repro_torch.configs.qwen3_0_6b"
     for alias in ("gemma3-27b", "gemma3_27b"):
         assert get_arch(alias).__name__ == "repro_torch.configs.gemma3_27b"
-    for name in ("zamba2-7b", "xlstm_350m", "granite-moe-3b-a800m", "no-such-arch"):
+    for name in ("zamba2-7b", "xlstm_350m", "whisper-tiny", "qwen2-vl-72b", "no-such-arch"):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             get_arch(name)
-    # the JAX registry knows the unported ones; the port's lists only dense decoders
+    # the JAX registry knows the unported ones; the port's lists the dense and MoE decoders
     assert j_get_arch("zamba2-7b").config().arch_type == "zamba"
     qwen = get_arch("qwen3-0.6b").smoke_config()
-    for other in (dataclasses.replace(qwen, arch_type="zamba"), dataclasses.replace(qwen, n_experts=4, top_k=2),
+    for other in (dataclasses.replace(qwen, arch_type="zamba"), dataclasses.replace(qwen, arch_type="whisper"),
                   dataclasses.replace(qwen, layer_pattern="GM")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             lm.init_params(other, device="cpu")
