@@ -9,8 +9,10 @@ store and a time-scrubbing server, serve both to TCP clients through the
 network frontend, train at the paper's scale (Miranda's 18.18M Gaussians
 on one card), then prefill, decode and
 train the full-width Qwen3-0.6B LM through the port's prefill, serve and
-train steps, and prefill, serve and train the full-width granite-moe
-(3.3B parameters, 40 experts top-8).
+train steps, prefill, serve and train the full-width granite-moe
+(3.3B parameters, 40 experts top-8), and the other families of the
+registry: zamba2-7b (Mamba2 with shared attention at head width 112),
+xlstm-350m, whisper-tiny and qwen2-vl-72b (M-RoPE).
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
     python3 chip_smoke.py --ranks-only    # the phases across ranks alone, e.g. on several cards
@@ -152,11 +154,43 @@ Phases, in order (any failure exits non-zero):
      in float32 at full widths but 4 layers, card against CPU: prefill
      logits within 1e-3 x max |logit|, every (token, choice)'s dispatch
      row equal (so the same dropped tokens), one train step as in 7b;
-  6. the result, printed last (after phase 7c): the kernels' JSON line (``launches`` from each
+  7d-7g. the other LM families, each at its published widths with random
+     weights from ``--seed`` (``family_phase``): the attention kernel
+     against its plain version at the family's shapes (float32 and bf16,
+     two bf16 launches bitwise equal) and timed beside its bound and
+     ``scaled_dot_product_attention(..., enable_gqa=)``; ``make_prefill_step``
+     at 4 x 4096 (ms p50, tokens/s, the attention launches a call from the
+     JAX layer plan, the counters zeroed just before and read just after,
+     one profiled call); the serving CLI's loop at its defaults;
+     ``make_train_step`` (1 warm-up + 3 timed steps, ms p50, tokens/s, peak
+     memory, a finite loss, the launches); float32 at full widths and a few
+     layers, card against CPU: the prefill's last logits within 1e-3 x max
+     |logit|, one train step as in 7b. 7d zamba2-7b: the kernel at hd 112,
+     32/32 heads (4 and 1 x 4096); prefill and the CLI at 81 layers (13
+     shared-attention calls a prefill), training at 24 layers (2 double
+     units, 1 x 4096; 8 launches a step with the remat recompute), one
+     mamba layer's SSD timed alone; the CPU check at 4 layers with period
+     1. 7e xlstm-350m: full size throughout (no attention), one sLSTM
+     layer timed alone and its share of the prefill and of a train step,
+     neither profiled (a prefill's ~350,000 device ops take the profiler
+     minutes), the prefill timed over one call after its warm-up (host-bound,
+     ~8 s a call); the CPU check at 2 layers of the smoke pattern "MS" (an mLSTM and an
+     sLSTM layer). 7f
+     whisper-tiny: full size, 1,500 audio frames from the seed; the kernel
+     at the encoder's 1,500 x 1,500, the cross-attention's 4,096 x 1,500
+     and its one-token decode (1 x 1,500, the serve step's), non-causal,
+     and the decoder's 4,096 (causal); 12 launches a prefill,
+     4 a serve step (the cross-attention over the zeroed encoder cache).
+     7g qwen2-vl-72b: merged embeddings and the M-RoPE triples of a text run
+     and one image's grid; prefill and the CLI's loop at 8 of 80 layers,
+     training at 2 layers, 1 x 4096; the CPU check at 1 layer;
+  6. the result, printed last (after phase 7g): the kernels' JSON line (``launches`` from each
      kernel's main path: training for the splatting kernels, the LM prefill
      for attention; ``launches_by_path`` with every path's own counts,
      ``lm_train``, ``moe_prefill``, ``moe_serve_cli`` and ``moe_train`` those
-     of phases 7b and 7c,
+     of phases 7b and 7c, ``<family>_prefill``, ``_serve_cli`` and ``_train``
+     those of 7d-7g for zamba, xlstm, whisper and vlm, ``family_shapes`` the
+     kernel's times at their shapes,
      ``serve_ranks`` the mesh server of phase 4b, ``ranks`` the sharded fits
      of phase 5b, ``insitu`` the stream, scrub and replay of phase 5c,
      ``frontend`` the TCP lap of phase 5d, ``paper_scale`` the two fits of
@@ -706,7 +740,26 @@ CROSS_SEQ = 128                 # tokens per row of the float32 card-vs-CPU chec
 
 
 def train_batch(cfg, b: int, s: int, dev, gen) -> dict:
-    return {k: torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen) for k in ("tokens", "labels")}
+    """A batch of ``cfg``'s family on the device from ``gen``, key for key
+    and shape for shape ``configs/common.py``'s ``lm_batch_specs``: token
+    ids and labels (int64 here, the index type of torch's gathers; int32 in
+    the specs); whisper's audio frames (the stub frontend's output) and the
+    VLM's merged embeddings from a normal distribution in ``cfg``'s dtype;
+    the VLM's M-RoPE triples those of a text run (a quarter of the
+    sequence) and one image's (t, h, w) grid of 64-patch rows."""
+    from repro_torch.configs.common import ShapeCase, lm_batch_specs, vlm_positions3
+
+    out = {}
+    for key, spec in lm_batch_specs(cfg, ShapeCase(s, b, "train")).items():
+        if key == "positions3":
+            n_img = s - s // 4
+            grid = (n_img // 64, 64) if n_img >= 64 else (1, n_img)
+            out[key] = torch.from_numpy(vlm_positions3(b, s, s // 4, grid)).to(dev)
+        elif spec.dtype == torch.int32:
+            out[key] = torch.randint(0, cfg.vocab, spec.shape, device=dev, generator=gen)
+        else:
+            out[key] = torch.randn(spec.shape, device=dev, generator=gen).to(spec.dtype)
+    return out
 
 
 def run_train_steps(label: str, card: str, step, params, opt, batch: dict, counters: dict, want_attn: int) -> dict:
@@ -715,8 +768,8 @@ def run_train_steps(label: str, card: str, step, params, opt, batch: dict, count
     attention launches per step, the other kernels none); wall ms per step
     (ending in the loss read), tokens/s and peak memory. Fails on a
     non-finite loss or a wrong count."""
-    dev = batch["tokens"].device
-    b, s = batch["tokens"].shape
+    dev = batch["labels"].device
+    b, s = batch["labels"].shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     params, opt, m = step(params, opt, batch)
@@ -735,7 +788,7 @@ def run_train_steps(label: str, card: str, step, params, opt, batch: dict, count
     log(f"{label} train step batch {b} x {s} tokens ({card}): losses {[round(x, 6) for x in losses]} (warm-up first), "
         f"ms {[round(x, 3) for x in times]}, p50 {p50:.3f} ms, {b * s / p50 * 1e3:.1f} tokens/s; max_memory_allocated "
         f"{peak} B ({peak / 2**30:.2f} GiB); launches over {TRAIN_STEPS} steps {launches} (want flash_attention "
-        f"{want_attn} per step, the forward and the remat recompute; the others 0)")
+        f"{want_attn} per step, the forward and any remat recompute; the others 0)")
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{label} train step: non-finite loss {losses}")
     want = {name: (want_attn * TRAIN_STEPS if name == "flash_attention" else 0) for name in counters}
@@ -760,6 +813,15 @@ def attention_vjp_profile(prof) -> str:
             f"kernel's launches (forward and recompute) {kern_ms:.3f} ms")
 
 
+def leaf_paths(tree, path: str = "") -> list:
+    """The "/"-joined key paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items() for q in leaf_paths(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree) for q in leaf_paths(v, f"{path}/{i}")]
+    return [path]
+
+
 def cross_check_train(label: str, cfg32, dev, seed: int, gen, b: int) -> None:
     """One float32 train step on the card and on the CPU from the same
     weights and batch: the loss within ``TRAIN_LOSS_RTOL``, every gradient
@@ -780,9 +842,11 @@ def cross_check_train(label: str, cfg32, dev, seed: int, gen, b: int) -> None:
         del opt
     (l_k, g_k), (l_c, g_c) = res
     errs = [float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30) for a, c in zip(g_k, g_c)]
+    worst = int(np.argmax(errs))
     log(f"{label} cross-check float32 train step ({b} x {CROSS_SEQ} tokens, {cfg32.n_layers} layers), card vs CPU: "
         f"loss {l_k:.7f} vs {l_c:.7f} (rtol {TRAIN_LOSS_RTOL:g}); gradients over {len(errs)} leaves: worst max "
-        f"|difference| / max |g| {max(errs):.3e} (tolerance {TRAIN_GRAD_TOL:g}); {time.perf_counter() - t0:.1f} s")
+        f"|difference| / max |g| {errs[worst]:.3e} at {leaf_paths(p_card)[worst]} (tolerance {TRAIN_GRAD_TOL:g}); "
+        f"{time.perf_counter() - t0:.1f} s")
     if abs(l_k - l_c) > TRAIN_LOSS_RTOL * abs(l_c) or max(errs) > TRAIN_GRAD_TOL:
         raise SystemExit(f"{label}: the card's train step disagrees with the CPU path")
 
@@ -965,6 +1029,305 @@ def moe_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: li
     cross_check_train("moe", cfg32, dev, seed + 4, gen, 2)
     log(f"moe phase ({card}): {time.perf_counter() - t_phase:.1f} s")
     return {"moe_prefill": prefill_launches, "moe_serve_cli": cli_launches, "moe_train": run["launches"]}
+
+
+# ---------------------------------------------------------------- phases 7d-7g: the other LM families
+FAMILY_BATCH = 4                # the prefill step's batch x LM_SEQ tokens, as phases 7 and 7c
+
+
+def attention_calls(cfg, train: bool = False) -> int:
+    """The attention kernel's launches in one forward of ``cfg``, from the
+    JAX layer plans (``models/lm.py``); with ``train``, in a train step,
+    where a stacked unit under ``cfg.remat`` runs its forward again in the
+    backward."""
+    from repro_torch.models import lm
+
+    unit, n_units, rem = lm.layer_plan(cfg)
+    again = 2 if train and cfg.remat else 1
+    if cfg.arch_type == "zamba":  # a shared block after each half of a double unit; A after every period of rem
+        return again * 2 * n_units + len(rem) // max(cfg.attn_every, 1)
+    if cfg.arch_type == "whisper":  # encoder, decoder and cross-attention layers, none stacked
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    per_unit = sum(k in lm.ATTN_KINDS for k in unit)
+    return (again if lm.uses_units(cfg) else 1) * per_unit * n_units + sum(k in lm.ATTN_KINDS for k in rem)
+
+
+def flash_family_checks(label: str, card: str, shapes: list, dev, gen) -> list:
+    """The attention kernel against its plain version at a family's shapes
+    ((what, B, S, Skv, H, Hkv, hd, causal)), float32 and bfloat16, the bf16
+    launch twice bitwise equal; then each shape timed: the bf16 kernel (CUDA
+    events), its bound, ``scaled_dot_product_attention(..., enable_gqa=)``
+    and, at the first shape, the float32 kernel and the plain version.
+    Returns one timing row per shape."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rows = []
+    for i, (what, b, s, skv, h, hkv, hd, causal) in enumerate(shapes):
+        q32, k32, v32 = (torch.randn(sh, device=dev, generator=gen)
+                         for sh in ((b, s, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
+        kw = dict(causal=causal)
+        flash_compare(f"{label} {what}", q32, k32, v32, kw, FLASH_F32_TOL)
+        q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+        err, out = flash_compare(f"{label} {what}", q, k, v, kw, FLASH_BF16_TOL)
+        if not torch.equal(fa_ops.flash_attention(q, k, v, **kw), out):
+            raise SystemExit(f"flash_attention ({label} {what}): two launches on the same inputs differ")
+        ms = cuda_ms(lambda: fa_ops.launch(q, k, v, **kw), 10, f"flash_attention {label} {what}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True), 10,
+                         "scaled_dot_product_attention")
+        pairs = attention_pairs(s, skv, causal, None, 0)
+        flops = 4 * hd * pairs * b * h
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
+        b_ops, b_bytes = flops / H100_BF16_PER_S * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        row = {"shape": f"{label} {what}: B {b}, S {s}, Skv {skv}, heads {h}/{hkv}, hd {hd}, "
+                        f"{'causal' if causal else 'non-causal'}, bf16",
+               "ms": ms, "max_abs_err": err, "bound_ms": max(b_ops, b_bytes),
+               "bound_by": "operations" if b_ops >= b_bytes else "bytes", "library_ms": lib_ms}
+        extra = ""
+        if i == 0:
+            row["float32_ms"] = cuda_ms(lambda: fa_ops.launch(q32, k32, v32, **kw), 3, "flash_attention float32")
+            row["plain_ms"] = wall_ms(lambda: attention_ref(q, k, v, **kw), 3)
+            extra = (f"; the float32 kernel {row['float32_ms']:.4f} ms, the plain version {row['plain_ms']:.4f} ms "
+                     "(wall per call)")
+        log(f"time flash_attention {row['shape']} ({card}): kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of "
+            f"counted work), scaled_dot_product_attention {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}: {flops} flops = 4 x hd x {pairs} unmasked pairs x B x H at 989 TFLOP/s -> "
+            f"{b_ops:.4f} ms; {nbytes} B at 3.35 TB/s -> {b_bytes:.4f} ms){extra}")
+        rows.append(row)
+        del q32, k32, v32, q, k, v, qt, kt, vt, out
+    return rows
+
+
+def recurrent_layer_times(label: str, card: str, cfg, layer, fn, b_prefill: int, b_train: int, dev, gen) -> dict:
+    """One recurrent layer's block (``fn(p, cfg, x)``: the SSD or the sLSTM)
+    timed alone, wall per call with the device drained after each (one
+    warm-up at the same shape, one timed call: the sLSTM's take seconds, and
+    a cold SSD call pays the allocator for its first multi-GB tensors): its
+    forward at the prefill's and the training's batch, and its forward and
+    backward at the training's."""
+    dtype = layer["norm"]["scale"].dtype
+    x = torch.randn((b_prefill, LM_SEQ, cfg.d_model), device=dev, generator=gen).to(dtype)
+    with torch.no_grad():
+        fwd_ms = wall_ms(lambda: fn(layer, cfg, x), 1)
+        fwd_train_ms = fwd_ms if b_train == b_prefill else wall_ms(lambda: fn(layer, cfg, x[:b_train]), 1)
+    xt = x[:b_train].clone().requires_grad_()
+    leaves = [v.requires_grad_() for v in layer.values() if isinstance(v, torch.Tensor)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fwd_bwd_ms = wall_ms(lambda: torch.autograd.grad(fn(layer, cfg, xt).float().sum(), [xt, *leaves]), 1)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    log(f"{label} {fn.__name__} alone ({card}; wall per call, the device drained after each): forward at "
+        f"{b_prefill} x {LM_SEQ} {fwd_ms:.3f} ms, at {b_train} x {LM_SEQ} {fwd_train_ms:.3f} ms; forward and backward "
+        f"at {b_train} x {LM_SEQ} {fwd_bwd_ms:.3f} ms (transient memory {peak} B)")
+    return {"fwd_ms": fwd_ms, "fwd_train_ms": fwd_train_ms, "fwd_bwd_ms": fwd_bwd_ms}
+
+
+def count_kind(cfg, kind: str) -> int:
+    """Layers of ``kind`` in ``cfg``'s layer plan."""
+    from repro_torch.models import lm
+
+    unit, n_units, rem = lm.layer_plan(cfg)
+    return unit.count(kind) * n_units + rem.count(kind)
+
+
+def family_phase(dev, card: str, seed: int, label: str, cfg, *, counters: dict, attn_shapes: list, cli_argv,
+                 train_cfg, train_batch_size: int, cross_cfg, cross_b: int, recurrent=None,
+                 profile: tuple = ("prefill", "train"), prefill_calls: int = 3) -> dict:
+    """Phases 7d-7g: one LM family at its widths. The attention kernel
+    against its plain version at the family's shapes and timed
+    (``flash_family_checks``); ``make_prefill_step`` at FAMILY_BATCH x
+    LM_SEQ (``prefill_calls`` timed after a warm-up: ms p50, tokens/s,
+    ``attention_calls`` launches a call, the counters zeroed just before and
+    read just after); the serving CLI's
+    loop at its defaults (``cli_argv``, or with None its ``serve_loop`` on
+    the prefill's weights: a depth the CLI's full config cannot hold);
+    ``make_train_step`` at ``train_cfg`` (1 warm-up + 3 timed steps);
+    ``profile``: which of one prefill call and one train step to profile
+    (``profile_step``); ``recurrent`` = (layer kind, its block's parameters
+    from the prefill's weights, the block function): that block alone,
+    against the prefill and the train step; float32 at ``cross_cfg`` (full
+    widths, a few layers), card against CPU: the prefill's logits and one
+    train step. Returns each path's launch counts and the kernel's timing
+    rows."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import api, lm
+    from repro_torch.models.params import tree_leaves, tree_to
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    torch.cuda.empty_cache()
+    rows = flash_family_checks(label, card, attn_shapes, dev, gen)
+
+    # ------------------------------------------------ prefill
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, seed=seed, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{label}: {cfg.name} {cfg.n_layers}L d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.hd} "
+        f"vocab {cfg.vocab} {cfg.dtype}: {n_params} parameters from seed {seed}")
+    data = train_batch(cfg, FAMILY_BATCH, LM_SEQ, dev, gen)
+    prefill = api.make_prefill_step(cfg)
+    prefill(params, data)
+    torch.cuda.synchronize()
+    calls, want_per_call = prefill_calls, attention_calls(cfg)
+    for c in counters.values():
+        c.n = 0
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        logits = prefill(params, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_launches = {name: c.n for name, c in counters.items()}
+    p50 = float(np.median(times))
+    log(f"{label} prefill batch {FAMILY_BATCH} x {LM_SEQ} tokens ({card}): ms {[round(x, 3) for x in times]}, p50 "
+        f"{p50:.3f} ms, {FAMILY_BATCH * LM_SEQ / p50 * 1e3:.1f} prompt tokens/s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev)} B; logits {tuple(logits.shape)} finite "
+        f"{bool(torch.isfinite(logits).all())}; launches {prefill_launches} (want flash_attention {want_per_call} "
+        f"per call x {calls})")
+    want = {name: (want_per_call * calls if name == "flash_attention" else 0) for name in counters}
+    if logits.shape != (FAMILY_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all() or prefill_launches != want:
+        raise SystemExit(f"{label} prefill: logits {tuple(logits.shape)}, launches {prefill_launches}, want {want}")
+    if "prefill" in profile:
+        profile_step(lambda: prefill(params, data), p50, label=f"{label} prefill step")
+    del logits, data
+    layer_times = None
+    if recurrent:
+        kind, layer_of, fn = recurrent
+        layer_times = recurrent_layer_times(label, card, cfg, layer_of(params), fn, FAMILY_BATCH, train_batch_size,
+                                            dev, gen)
+        n_rec = count_kind(cfg, kind)
+        log(f"{label} {fn.__name__} share of the prefill ({card}): {n_rec} layers x {layer_times['fwd_ms']:.3f} ms = "
+            f"{n_rec * layer_times['fwd_ms']:.3f} ms of the p50 {p50:.3f} ms "
+            f"({n_rec * layer_times['fwd_ms'] / p50:.4f})")
+
+    # ------------------------------------------------ the serving CLI's loop
+    if cli_argv is not None:
+        del params
+        torch.cuda.empty_cache()
+    for c in counters.values():
+        c.n = 0
+    if cli_argv is not None:
+        res = serve_cli.main(cli_argv)
+        where = f"{cli_argv}"
+    else:
+        res = serve_cli.serve_loop(cfg, params, batch=4, prompt_len=32, gen=16, cache_len=48, device=dev,
+                                   generator=torch.Generator().manual_seed(seed))
+        where = f"serve_loop at the CLI's defaults on the {cfg.n_layers}-layer weights"
+        del params
+    torch.cuda.synchronize()
+    cli_launches = {name: c.n for name, c in counters.items()}
+    n_prompt, n_gen = res["prompt"].shape[1], res["ids"].shape[1]
+    decode_attn = cfg.n_layers if cfg.arch_type == "whisper" else 0  # the cross-attention, through the kernel
+    log(f"{label} serve CLI {where} ({card}): prefill {res['prefill_s'] * 1e3:.3f} ms over {n_prompt} serve steps, "
+        f"decode {res['decode_s'] / max(n_gen - 1, 1) * 1e3:.3f} ms/token; ids {res['ids'].tolist()}; launches "
+        f"{cli_launches} (want flash_attention {decode_attn} per serve step: decode self-attention is plain PyTorch"
+        f"{', the cross-attention over the zeroed encoder cache the kernel' if decode_attn else ''})")
+    want = {name: (decode_attn * (n_prompt + n_gen - 1) if name == "flash_attention" else 0) for name in counters}
+    if res["ids"].shape != (res["prompt"].shape[0], n_gen) or cli_launches != want:
+        raise SystemExit(f"{label} serve CLI: ids {res['ids'].shape}, launches {cli_launches}, want {want}")
+    del res
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ training
+    params = lm.init_params(train_cfg, seed=seed, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{label} train: {train_cfg.n_layers} layers, {n_params} parameters, remat {train_cfg.remat}, batch "
+        f"{train_batch_size} x {LM_SEQ}")
+    step = api.make_train_step(train_cfg)
+    data = train_batch(train_cfg, train_batch_size, LM_SEQ, dev, gen)
+    run = run_train_steps(label, card, step, params, api.adamw_init(params), data, counters,
+                          attention_calls(train_cfg, train=True))
+    params, opt = run["params"], run["opt"]
+    if "train" in profile:
+        got = profile_step(lambda: step(params, opt, data), run["p50"], label=f"{label} train step")
+        if got:
+            log(f"{label} train step profile: {attention_vjp_profile(got[0])}")
+    if layer_times:
+        n_rec = count_kind(train_cfg, recurrent[0])
+        per = layer_times["fwd_bwd_ms"] + (layer_times["fwd_train_ms"] if train_cfg.remat else 0.0)
+        log(f"{label} {recurrent[2].__name__} share of a train step ({card}): {n_rec} layers x {per:.3f} ms (forward "
+            f"and backward{', and the remat recompute' if train_cfg.remat else ''}) = {n_rec * per:.3f} ms of the p50 "
+            f"{run['p50']:.3f} ms ({n_rec * per / run['p50']:.4f})")
+    del params, opt, data, step
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ float32 at full widths and a few layers: card vs CPU
+    cfg32 = dataclasses.replace(cross_cfg, dtype="float32")
+    p32 = lm.init_params(cfg32, seed=seed + 5, device=dev)
+    batch = train_batch(cfg32, cross_b, CROSS_SEQ, dev, gen)
+    step32 = api.make_prefill_step(cfg32)
+    lg_k = step32(p32, batch).float().cpu()
+    t0 = time.perf_counter()
+    lg_c = step32(tree_to(p32, "cpu"), {k: v.cpu() for k, v in batch.items()})
+    err, scale = float((lg_k - lg_c).abs().max()), float(lg_c.abs().max())
+    log(f"{label} cross-check float32 prefill ({cross_b} x {CROSS_SEQ} tokens, {cfg32.n_layers} layers, "
+        f"{attention_calls(cfg32)} attention calls), card vs CPU: max_abs_err {err:.3e}, relative to max |logit| "
+        f"{scale:.4f}: {err / scale:.3e} (tolerance {LM_CROSS_TOL:g}); the CPU took {time.perf_counter() - t0:.1f} s")
+    if not err <= LM_CROSS_TOL * scale:
+        raise SystemExit(f"{label} cross-check failed: the card's prefill disagrees with the CPU path")
+    del p32, batch
+    cross_check_train(label, cfg32, dev, seed + 6, gen, cross_b)
+    log(f"{label} phase ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {f"{label}_prefill": prefill_launches, f"{label}_serve_cli": cli_launches,
+                         f"{label}_train": run["launches"]}, "rows": rows}
+
+
+def family_runs(seed: int) -> list:
+    """Phases 7d-7g, in order: (label, ``family_phase`` keywords). Widths are
+    the published ones; the cuts are of depth and batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.params import tree_map
+
+    zamba, xl = get_arch("zamba2-7b").config(), get_arch("xlstm-350m").config()
+    wh, vlm = get_arch("whisper-tiny").config(), get_arch("qwen2-vl-72b").config()
+    cut = dataclasses.replace
+
+    def cli(arch):
+        return ["--arch", arch, "--device", "cuda", "--seed", str(seed)]
+
+    def causal(what, b, h, hkv, hd):
+        return (what, b, LM_SEQ, LM_SEQ, h, hkv, hd, True)
+
+    return [
+        # 7d: 81 layers (6 double units + 9 remainder, 13 shared-attention calls) for prefill and
+        # serving; training at 24 layers (2 double units) and 1 x 4096: at 2 x 4096 the recompute
+        # of one double unit (12 mamba layers' SSD tensors) runs out of the card's 80 GB; the CPU
+        # check at 4 layers with period 1, so that both shared blocks run (2 double units of 1 + 1)
+        ("zamba", dict(cfg=zamba, attn_shapes=[causal("shared attention", FAMILY_BATCH, 32, 32, 112),
+                                               causal("training", 1, 32, 32, 112)],
+                       cli_argv=cli("zamba2-7b"), train_cfg=cut(zamba, n_layers=24), train_batch_size=1,
+                       cross_cfg=cut(zamba, n_layers=4, attn_every=1), cross_b=2,
+                       recurrent=("mamba", lambda p: tree_map(torch.clone, p["rem_layers"][0]["mamba"]),
+                                  SSM.mamba2_train))),
+        # 7e: full size throughout; no attention; the CPU check at 2 layers of the smoke config's
+        # pattern "MS" (one mLSTM, one sLSTM): deeper mLSTM stacks are ill-conditioned in float32
+        # (1e-7 relative noise on the weights of the 8-layer "MMMMMMMS" moves the mLSTM forget-gate
+        # bias gradients by up to 1.3e-3 of their max on the CPU, 4 mLSTM layers by 1.2e-4, these
+        # 2 layers by 5e-6), so the 1e-3 gate would test rounding, not the card
+        ("xlstm", dict(cfg=xl, attn_shapes=[], cli_argv=cli("xlstm-350m"), train_cfg=xl,
+                       train_batch_size=FAMILY_BATCH, cross_cfg=cut(xl, n_layers=2, xlstm_pattern="MS"), cross_b=2,
+                       recurrent=("slstm", lambda p: tree_map(lambda x: x[0].clone(), p["units"]["slot7"]["slstm"]),
+                                  XL.slstm_train),
+                       # 353,509 device ops a prefill: its trace takes the profiler minutes, and a
+                       # train step's ~10^6 more; one timed prefill call: each takes ~8 s of host time
+                       profile=(), prefill_calls=1)),
+        # 7f: full size (4 + 4 layers), 1,500 audio frames
+        ("whisper", dict(cfg=wh, attn_shapes=[("encoder", FAMILY_BATCH, 1500, 1500, 6, 6, 64, False),
+                                              ("cross-attention", FAMILY_BATCH, LM_SEQ, 1500, 6, 6, 64, False),
+                                              ("cross-attention decode", FAMILY_BATCH, 1, 1500, 6, 6, 64, False),
+                                              causal("decoder", FAMILY_BATCH, 6, 6, 64)],
+                         cli_argv=cli("whisper-tiny"), train_cfg=wh, train_batch_size=FAMILY_BATCH, cross_cfg=wh,
+                         cross_b=2)),
+        # 7g: 8 of 80 layers for prefill and serving (16.5 GB of bf16 weights), 2 for training (a
+        # 62 GB peak), 1 for the CPU check (its full-width embedding alone is 1.25e9 parameters)
+        ("vlm", dict(cfg=cut(vlm, n_layers=8), attn_shapes=[causal("prefill", FAMILY_BATCH, 64, 8, 128),
+                                                           causal("training", 1, 64, 8, 128)],
+                     cli_argv=None, train_cfg=cut(vlm, n_layers=2), train_batch_size=1,
+                     cross_cfg=cut(vlm, n_layers=1), cross_b=1)),
+    ]
 
 
 RANKS_STEPS = 3
@@ -2496,6 +2859,13 @@ def main(argv=None) -> int:
     moe_res = moe_phase(dev, card, args.seed, get_arch("granite-moe-3b-a800m").config(), LM_BATCH, LM_SEQ,
                         ["--arch", "granite-moe-3b-a800m", "--device", "cuda", "--seed", str(args.seed)], counters)
 
+    # ---------------------------------------------------------- 7d-7g. zamba2-7b, xlstm-350m, whisper-tiny, qwen2-vl-72b
+    fam_launches, fam_rows = {}, []
+    for label, kw in family_runs(args.seed):
+        got = family_phase(dev, card, args.seed, label, counters=counters, **kw)
+        fam_launches.update(got["launches"])
+        fam_rows += got["rows"]
+
     # ---------------------------------------------------------- 6. result
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
@@ -2504,7 +2874,8 @@ def main(argv=None) -> int:
                 "train": train_launches[i], "ranks": ranks_launches[name], "insitu": insitu_launches[name],
                 "frontend": frontend_launches[name], "paper_scale": paper_launches[name],
                 "lm_prefill": lm_res["lm_prefill"][name], "lm_serve_cli": lm_res["lm_serve_cli"][name],
-                "lm_train": lm_train_launches[name], **{path: moe_res[path][name] for path in moe_res}}
+                "lm_train": lm_train_launches[name], **{path: moe_res[path][name] for path in moe_res},
+                **{path: fam_launches[path][name] for path in fam_launches}}
 
     kernels = [
         {"name": "gsproject", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",
@@ -2521,7 +2892,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/tile_raster/tile_raster.py:117", "launches": train_launches[2],
          "launches_by_path": by_path(2, "tile_raster_bwd"),
          "max_abs_err": bwd_err, **trb["frame"], "library_ms": None},
-        {**lm_res["entry"], "launches_by_path": by_path(3, "flash_attention")},
+        {**lm_res["entry"], "launches_by_path": by_path(3, "flash_attention"), "family_shapes": fam_rows},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

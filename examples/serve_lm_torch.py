@@ -1,11 +1,13 @@
 """Serving example for the port's transformer substrate (the mirror of
 ``examples/serve_lm.py``): batched greedy decode with a KV cache through
-the port's ``make_serve_step``, at the reduced smoke variant of an
-architecture, dense or MoE. Runs on the card by default; ``--device cpu``
-runs the plain PyTorch versions.
+the port's ``make_serve_step``, at the reduced smoke variant of any
+architecture of the registry (dense, MoE, the SSM hybrid, xLSTM, whisper,
+the VLM). Runs on the card by default; ``--device cpu`` runs the plain
+PyTorch versions.
 
   PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen3-0.6b --tokens 16
   PYTHONPATH=src python examples/serve_lm_torch.py --arch granite-moe-3b-a800m --device cpu
+  PYTHONPATH=src python examples/serve_lm_torch.py --arch zamba2-7b --device cpu
 """
 import argparse
 

@@ -31,7 +31,7 @@
 // against 201 MB of q, k, v and o: over a thousand flops per byte, far
 // above the ridge. Two kernels:
 //
-// bfloat16, hd 32, 64 and 128 (what the models run): the tensor cores.
+// bfloat16, hd 32, 64, 112 and 128 (what the models run): the tensor cores.
 //   One CTA of three warpgroups per (batch*head, block of kBQ = 128 query
 //   rows), launched heaviest causal block first. One thread of the third
 //   warpgroup (the producer, 24 registers after setmaxnreg) issues TMA
@@ -59,6 +59,13 @@
 //   the softmax of one warpgroup run in sequence (the other warpgroup's
 //   work fills the gaps); overlapping them, ping-pong scheduling of the
 //   two warpgroups and a persistent grid are later work.
+//   hd 112 (zamba2-7b's shared attention) keeps hd 128's shared-memory
+//   tiles and swizzle: its tensor maps declare the true width, 112, so the
+//   second 64-wide box of a row reads columns 64-111 and the hardware fills
+//   columns 112-127 with zeros. Q K^T runs 7 reduction steps of 16 (the
+//   zero columns are never read); P V runs at n 128 over V's zero columns,
+//   whose output columns stay 0 and are not stored. The global rows stay
+//   16-byte multiples (224 B), and the scale is 1/sqrt(112).
 //
 // float32 (what the float32 tests and cross-checks run, at atol 2e-5,
 //   which TF32 tensor cores cannot hold): the CUDA cores. One CTA of 128
@@ -272,6 +279,10 @@ constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kStages = 2;      // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
+// the width of the shared-memory tiles of head width HD: HD, or for a
+// width that is not a whole number of 64-element boxes, the next one
+__host__ __device__ constexpr int tile_dim(int hd) { return hd <= 32 ? hd : (hd + 63) / 64 * 64; }
+
 template <int HD>
 struct Tile {
   static constexpr int kRowBytes = HD >= 64 ? 128 : 64;     // swizzle width: one row of a region
@@ -457,7 +468,8 @@ __global__ void __launch_bounds__(kThreads, 1) attention_tc_kernel(
     const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int s_q, int s_kv, int n_heads,
     int n_kv_heads, int causal, int window, int q_offset, float scale_log2) {
-  using T = Tile<HD>;
+  constexpr int TD = tile_dim(HD);
+  using T = Tile<TD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;  // Q; stage s: K at sk(s), V at sk(s) + kBytes
   const uint32_t sk = sq + T::kBytes;
@@ -522,9 +534,9 @@ __global__ void __launch_bounds__(kThreads, 1) attention_tc_kernel(
     const int wg_last = wg_first + 63;
     const uint32_t qa = sq + wg * 64 * T::kRowBytes;         // its 64 rows in every Q region
 
-    float acc[HD / 2];
+    float acc[TD / 2];  // columns HD..TD-1 (zero V columns) stay 0
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < TD / 2; ++i) acc[i] = 0.0f;
     float m[2] = {kMasked, kMasked};  // in units of raw q.k; the scale enters in exp2
     float l[2] = {0.0f, 0.0f};        // this thread's share of the row sums
 
@@ -540,7 +552,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_tc_kernel(
       mbar_wait(k_full + 8 * s, parity);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss_n128(sc, kmajor_desc<HD>(qa, kk), kmajor_desc<HD>(ks, kk), kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss_n128(sc, kmajor_desc<TD>(qa, kk), kmajor_desc<TD>(ks, kk), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -602,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_tc_kernel(
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs(acc, pa[kk], mnmajor_desc<HD>(ks + T::kBytes, kk));
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs(acc, pa[kk], mnmajor_desc<TD>(ks + T::kBytes, kk));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -646,10 +658,11 @@ EncodeTiled encoder() {
 }
 
 // a contiguous bf16 (batch, seq, heads, HD) tensor as a 4-D map (hd,
-// heads, seq, batch) read in boxes of (kChunk, 1, 128, 1), swizzled
+// heads, seq, batch) read in boxes of (kChunk, 1, 128, 1) of its tile
+// width, swizzled; columns past HD are out of bounds and read as zeros
 template <int HD>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int seq, int heads) {
-  using T = Tile<HD>;
+  using T = Tile<tile_dim(HD)>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(HD) * 2, static_cast<cuuint64_t>(heads) * HD * 2,
@@ -657,7 +670,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int se
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::kChunk), 1, 128, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, HD >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -672,11 +685,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
       !encode<HD>(fn, &map_v, v, batch, s_kv, n_kv_heads))
     return cudaErrorInvalidValue;
   auto kernel = attention_tc_kernel<HD>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HD>::kSmem);
+  constexpr int smem = Tile<tile_dim(HD)>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s_q + kBQ - 1) / kBQ, batch * n_heads);
-  kernel<<<grid, kThreads, Tile<HD>::kSmem, stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s_q,
+  kernel<<<grid, kThreads, smem, stream>>>(map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), s_q,
                                                       s_kv, n_heads, n_kv_heads, causal, window, q_offset,
                                                       scale * kLog2e);
   return cudaGetLastError();
@@ -707,6 +720,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       return launch<32>(is_bf16, q, k, v, o, batch, s_q, s_kv, n_heads, n_kv_heads, causal, window, q_offset, scale, st);
     case 64:
       return launch<64>(is_bf16, q, k, v, o, batch, s_q, s_kv, n_heads, n_kv_heads, causal, window, q_offset, scale, st);
+    case 112:
+      return launch<112>(is_bf16, q, k, v, o, batch, s_q, s_kv, n_heads, n_kv_heads, causal, window, q_offset, scale,
+                         st);
     case 128:
       return launch<128>(is_bf16, q, k, v, o, batch, s_q, s_kv, n_heads, n_kv_heads, causal, window, q_offset, scale,
                          st);

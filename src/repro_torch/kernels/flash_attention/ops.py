@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128)  # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64, 112, 128)  # head widths the kernel is instantiated for
 DTYPES = (torch.float32, torch.bfloat16)
 
 launch_count = _lib.LaunchCount()

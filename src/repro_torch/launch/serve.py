@@ -1,17 +1,26 @@
 """Batched LM serving CLI (PyTorch port): prefill by decode steps, then
 cached greedy decode.
 
-The JAX package's ``launch/serve.py`` for the decoders the port runs: dense
-(``--arch qwen3-0.6b``, ``gemma3-27b``, ``granite-3-8b``) and MoE
-(``granite-moe-3b-a800m``, ``moonshot-v1-16b-a3b``, ``kimi-k2-1t-a32b``, the
-last only at ``--smoke``: its 1T parameters fit no single card). Weights are random from
-``--seed``, drawn on the device, and the prompt is random from an explicit
-``torch.Generator`` seeded with it. Runs on the card by default and refuses
-when there is none; ``--device cpu`` runs the plain PyTorch versions.
+The JAX package's ``launch/serve.py`` for every architecture of the
+registry: dense (``--arch qwen3-0.6b``, ``gemma3-27b``, ``granite-3-8b``),
+MoE (``granite-moe-3b-a800m``, ``moonshot-v1-16b-a3b``, ``kimi-k2-1t-a32b``),
+the SSM hybrid ``zamba2-7b``, ``xlstm-350m``, ``whisper-tiny`` and
+``qwen2-vl-72b``. Token prompts are stepped through the serve step for
+every family, as the JAX CLI does: whisper decodes against its
+cross-attention cache as ``init_cache`` leaves it (zeros; nothing fills it
+from the encoder), and the VLM embeds tokens and gives M-RoPE the token's
+position in all three streams. kimi-k2 (1T parameters) and qwen2-vl-72b
+(146 GB of bf16 weights at 80 layers) fit no single card at full depth:
+serve them ``--smoke``. Weights are random from ``--seed``, drawn on the
+device, and the prompt is random from an explicit ``torch.Generator``
+seeded with it. Runs on the card by default and refuses when there is none;
+``--device cpu`` runs the plain PyTorch versions.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu \\
       --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
 """
 from __future__ import annotations

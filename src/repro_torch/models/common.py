@@ -8,7 +8,9 @@ softmax on the CPU, in the forward and in a training step's recompute.
 One-token decode attention is plain PyTorch, as the JAX package computes it
 outside any Pallas kernel. The JAX code's sharding
 annotations (``lshard``) are no-ops without a mesh and are dropped here.
-``chunked_ce_loss`` is the training loss; M-RoPE (the VLM's) is not ported.
+``chunked_ce_loss`` is the training loss; ``apply_mrope`` is Qwen2-VL's
+M-RoPE, which ``_qkv`` takes in place of RoPE when given (B,S,3) position
+triples.
 """
 from __future__ import annotations
 
@@ -47,7 +49,13 @@ def rmsnorm(p, x, eps):
 
 # --------------------------------------------------------------------- RoPE
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+    """The float32 rotary frequencies: the float32 exponents, then the power
+    and reciprocal in float64, rounded once, which gives the values XLA's
+    compiled power gives. torch's float32 power is an ulp off at some
+    entries, and the angle's error grows with the position (2e-4 rad at
+    4,000)."""
+    expo = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return (1.0 / (theta ** expo.to(torch.float64))).to(torch.float32)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -55,6 +63,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                         # (hd/2,)
     ang = positions[..., None].to(torch.float32) * freqs           # (B,S,hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections) -> torch.Tensor:
+    """Qwen2-VL M-RoPE. x: (B,S,H,hd), positions: (B,S,3) [t,h,w]; sections
+    sum to hd/2: each rotary frequency slot takes its position stream by
+    section."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(hd, theta, x.device)                         # (half,)
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device) for i, s in enumerate(sections)])
+    pos = positions.to(torch.float32)[..., sec_id]                 # (B,S,half)
+    ang = pos * freqs[None, None]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -77,7 +103,7 @@ def attn_init(gen, cfg, dtype):
     return p
 
 
-def _qkv(p, cfg, x, positions):
+def _qkv(p, cfg, x, positions, mrope_positions=None):
     b, s, _ = x.shape
     hd = cfg.hd
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
@@ -86,7 +112,10 @@ def _qkv(p, cfg, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if positions is not None:
+    if mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta, cfg.mrope_sections)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -99,14 +128,14 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int | None = None
     return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
-def attention_train(p, cfg, x, positions, *, window=None, causal=True):
+def attention_train(p, cfg, x, positions, *, window=None, causal=True, mrope_positions=None):
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, positions)
+    q, k, v = _qkv(p, cfg, x, positions, mrope_positions)
     out = chunked_attention(q, k, v, causal=causal, window=window)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
-def attention_decode(p, cfg, x, cache_k, cache_v, pos: int, *, window=None):
+def attention_decode(p, cfg, x, cache_k, cache_v, pos: int, *, window=None, mrope_positions=None):
     """One-token decode. cache_k/v: (B, Scache, Hkv, hd) ring or linear buffer.
 
     pos: absolute position of the new token. Writes the new key and value
@@ -115,7 +144,7 @@ def attention_decode(p, cfg, x, cache_k, cache_v, pos: int, *, window=None):
     b = x.shape[0]
     hd = cfg.hd
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, cfg, x, positions)
+    q, k, v = _qkv(p, cfg, x, positions, mrope_positions)
     s_cache = cache_k.shape[1]
     slot = pos % s_cache if window is not None else min(pos, s_cache - 1)
     cache_k[:, slot:slot + 1] = k.to(cache_k.dtype)

@@ -6,7 +6,9 @@ the sharded train step on a world-1 NCCL mesh bitwise against the
 one-device step (and across cards where there are two or more), the mesh
 render server on a world-1 NCCL mesh (and on (2, 1) across cards) bitwise
 against the one-device server, the LM prefill step through the
-attention kernel against the CPU, ``moe_apply`` and a remat train step
+attention kernel against the CPU (the dense decoders, the SSM hybrid,
+xLSTM, whisper and the VLM; the kernel at head width 112 too),
+``moe_apply`` and a remat train step
 (dense and MoE) against the CPU, and a small in situ run (the warm-start
 trainer over two timesteps) against the CPU and, on a world-1 NCCL mesh,
 bitwise against one device.
@@ -659,6 +661,7 @@ FLASH_CASES = [
     (1, 2048, 2048, 4, 2, 128, True, 1024),
     (1, 100, 9000, 2, 1, 128, True, None),
     (2, 300, 300, 2, 1, 128, True, None),
+    (4, 1, 1500, 6, 6, 64, False, None),  # whisper-tiny's cross-attention at a serve step
 ]
 # float32 (the CUDA-core kernel): the JAX kernel test's tolerance; bfloat16
 # (the tensor-core kernel): one bf16 step is up to 2^-7 relative, and the
@@ -738,6 +741,78 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
     q, k, v = _qkv(1, 16, 16, 2, 2, 32, 0, cuda_device)
     with pytest.raises(ValueError, match="no unmasked key"):
         fa_ops.flash_attention(q, k, v, q_offset=-4)
+
+
+# head width 112 (zamba2-7b's shared attention): key tails (Skv 1,500 and
+# 100 are not multiples of the key block), causal and not, GQA 32/32 and 8/2
+HD112_CASES = [
+    (1, 256, 1500, 8, 2, False),
+    (2, 100, 100, 8, 2, True),
+    (1, 128, 1500, 32, 32, True),
+    (1, 1500, 1500, 32, 32, False),
+]
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", FLASH_TOLS)
+@pytest.mark.parametrize("b,s,skv,h,hkv,causal", HD112_CASES)
+def test_flash_attention_hd112_matches_plain(cuda_device, b, s, skv, h, hkv, causal, dtype, atol, rtol):
+    """The hd-112 instances (their tensor maps declare 112 columns of a
+    128-wide tile) against the plain version; two launches bitwise equal."""
+    q, k, v = _qkv(b, s, skv, h, hkv, 112, s + skv + h, cuda_device, dtype)
+    kw = dict(causal=causal, q_offset=skv - s if causal else 0)
+    before = fa_ops.launch_count.n
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count.n == before + 1 and got.dtype == dtype
+    want = attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), atol=atol, rtol=rtol)
+    assert torch.equal(fa_ops.flash_attention(q, k, v, **kw), got)
+
+
+def test_flash_attention_hd112_gradient_on_card_matches_plain(cuda_device):
+    q, k, v = _qkv(2, 96, 160, 8, 2, 112, 11, cuda_device)
+    gout = torch.randn(q.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(1))
+    grads = []
+    for fn in (fa_ops.flash_attention, attention_ref):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, causal=True, q_offset=64), leaves, gout))
+    for a, b_ in zip(*grads):
+        np.testing.assert_allclose(a.cpu().numpy(), b_.cpu().numpy(), atol=2e-5 * float(b_.abs().max()), rtol=2e-4)
+
+
+def _family_batch(cfg, b, s, seed):
+    """A prefill batch of ``cfg``'s family from numpy: token ids; whisper's
+    audio frames; the VLM's merged embeddings and (t, h, w) positions."""
+    r = np.random.default_rng(seed)
+    if cfg.arch_type == "vlm":
+        return {"embeds": torch.from_numpy(r.normal(0, 1, (b, s, cfg.d_model)).astype(np.float32)),
+                "positions3": torch.from_numpy(r.integers(0, s, (b, s, 3)).astype(np.int32))}
+    batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab, (b, s)))}
+    if cfg.arch_type == "whisper":
+        batch["audio_embeds"] = torch.from_numpy(r.normal(0, 1, (b, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch,launches", [("zamba2-7b", 4), ("xlstm-350m", 0), ("whisper-tiny", 6),
+                                           ("qwen2-vl-72b", 2)])
+def test_family_smoke_prefill_on_card_matches_cpu(cuda_device, arch, launches, monkeypatch):
+    """The smoke config's prefill (float32) of the SSM hybrid, xLSTM,
+    whisper and VLM families on the card against the CPU at the LM parity
+    tests' tolerance, 70 tokens (not a whole number of 64-token chunks);
+    the attention kernel launched once per attention call (zamba: 2 double
+    units of 2 shared blocks; whisper: encoder, decoder and cross). cuDNN's
+    TF32 is off for the mamba conv, as chip_smoke.py sets it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_arch(arch).smoke_config()
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    batch = _family_batch(cfg, 2, 70, 1)
+    step = api.make_prefill_step(cfg)
+    want = step(params, batch)
+    before = fa_ops.launch_count.n
+    got = step(tree_to(params, cuda_device), {k: v.to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count.n == before + launches
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-27b"])

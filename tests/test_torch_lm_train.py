@@ -44,25 +44,12 @@ from repro_torch.models import api, lm
 from repro_torch.models import common as C
 from repro_torch.models.params import params_from_jax, tree_leaves
 
-from torch_port_helpers import np_
+from torch_port_helpers import check_train_steps, lm_batch, np_
+from torch_port_helpers import close_grad as _close_grad
+from torch_port_helpers import flat_tree as _flat
 
 TRAIN_ARCHS = ["qwen3-0.6b", "gemma3-27b", "granite-3-8b", "granite-moe-3b-a800m", "moonshot-v1-16b-a3b"]
-LR, B1, STEPS = 3e-4, 0.9, 3
-
-
-def _flat(tree, path=()) -> dict:
-    """{path: numpy leaf} of a nested dict/list tree of either package."""
-    if isinstance(tree, dict):
-        return {k: v for key in sorted(tree) for k, v in _flat(tree[key], path + (key,)).items()}
-    if isinstance(tree, (list, tuple)):
-        return {k: v for i, t in enumerate(tree) for k, v in _flat(t, path + (i,)).items()}
-    # a copy: the port's train step updates its tensors in place
-    return {path: np.array(np_(tree.float()) if isinstance(tree, torch.Tensor) else np.asarray(tree), np.float32)}
-
-
-def _close_grad(got, want, what):
-    scale = float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, atol=2e-5 * scale, rtol=2e-4, err_msg=what)
+LR, STEPS = 3e-4, 3
 
 
 def _batch(cfg, b, s, seed):
@@ -129,57 +116,16 @@ def test_adamw_update_matches_jax_on_float32_and_bfloat16_leaves():
                                        err_msg=f"{key} {path}")
 
 
-def _adamw_carried_tol(du, g, m, v, t):
-    """Per-entry tolerance on AdamW's step t, whose reference update is
-    ``du``: the North star's on the update, plus how far the update moves
-    when the gradient moves within the North star's tolerance, that
-    tolerance times |d(update)/dg| at the reference's state (first order,
-    doubled)."""
-    eps, b2 = 1e-8, 0.95
-    tau = 2e-5 * np.abs(g).max() + 2e-4 * np.abs(g)
-    c1, c2 = 1 - B1**t, 1 - b2**t
-    mhat, rv = m / c1, np.sqrt(v / c2)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        dv = np.where(rv > 0, np.abs(mhat) * (1 - b2) * np.abs(g) / (c2 * rv * (rv + eps) ** 2), 0.0)
-    dudg = (1 - B1) / (c1 * (rv + eps)) + dv
-    return 2e-5 * np.abs(du).max() + 2e-4 * np.abs(du) + 2 * LR * dudg * tau
-
-
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_step_matches_jax(arch):
     """Three steps of ``make_train_step`` on the same batch. Chained on each
     side: the losses. Step by step, the port started from the JAX state
     before each step: the loss, the gradient (read from the first moment),
     both moments, and the parameters after the step (the gradient tolerance
-    carried through AdamW, ``_adamw_carried_tol``)."""
+    carried through AdamW, ``torch_port_helpers.adamw_carried_tol``)."""
     jcfg, tcfg = j_get_arch(arch).smoke_config(), get_arch(arch).smoke_config()
-    jp = J_lm.init_params(jcfg, jax.random.key(0))
-    to_port = lambda tree: params_from_jax(jax.tree_util.tree_map(np.asarray, tree), device="cpu")  # noqa: E731
-    chained_p = to_port(jp)
     jb, tb = _batch(jcfg, 2, 40, seed=1)
-    jstep, jo = jax.jit(J_api.make_train_step(jcfg, lr=LR)), J_api.adamw_init(jp)
-    tstep = api.make_train_step(tcfg, lr=LR)
-    chained_o = api.adamw_init(chained_p)
-    for t in range(1, STEPS + 1):
-        tp, tp_o = tstep(to_port(jp), to_port(jo), tb)[:2]
-        m_prev, p_prev = _flat(jo["m"]), _flat(jp)
-        jp, jo, jm = jstep(jp, jo, jb)
-        chained_p, chained_o, tm = tstep(chained_p, chained_o, tb)
-        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5, err_msg=f"chained loss, step {t}")
-        got = {k: _flat(tree) for k, tree in (("p", tp), ("m", tp_o["m"]), ("v", tp_o["v"]))}
-        want = {k: _flat(tree) for k, tree in (("p", jp), ("m", jo["m"]), ("v", jo["v"]))}
-        assert got["p"].keys() == want["p"].keys() == m_prev.keys()
-        for path in want["p"]:
-            g_t = (got["m"][path] - B1 * m_prev[path]) / (1 - B1)
-            g_j = (want["m"][path] - B1 * m_prev[path]) / (1 - B1)
-            _close_grad(g_t, g_j, f"gradient {path}, step {t}")
-            for key in ("m", "v"):
-                _close_grad(got[key][path], want[key][path], f"AdamW {key} {path}, step {t}")
-            du = want["p"][path] - p_prev[path]
-            tol = _adamw_carried_tol(du, g_j, want["m"][path], want["v"][path], t)
-            d = np.abs(got["p"][path] - want["p"][path])
-            tol = tol + np.spacing(np.abs(want["p"][path]))  # the stored parameter's own rounding
-            assert (d <= tol).all(), f"parameter {path}, step {t}: {int((d > tol).sum())} entries outside"
+    check_train_steps(jcfg, tcfg, jb, tb, steps=STEPS, lr=LR)
 
 
 def test_remat_on_and_off_give_equal_gradients_and_recompute_attention(monkeypatch):
@@ -213,9 +159,14 @@ def test_remat_on_and_off_give_equal_gradients_and_recompute_attention(monkeypat
 
 
 def test_compute_loss_refuses_the_unported_families():
-    cfg = get_arch("qwen3-0.6b").smoke_config()
-    params = lm.init_params(cfg, seed=0, device="cpu")
-    _, tb = _batch(cfg, 1, 8, seed=0)
-    for arch_type in ("whisper", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            api.compute_loss(dataclasses.replace(cfg, arch_type=arch_type), params, tb)
+    """No family is refused any more (the name is kept from when whisper's
+    and the VLM's losses raised): their ``compute_loss`` at the smoke
+    configs equals the JAX package's at rtol 1e-5, whisper from audio
+    frames and tokens, the VLM from merged embeddings and M-RoPE triples."""
+    for arch in ("whisper-tiny", "qwen2-vl-72b"):
+        jcfg, tcfg = j_get_arch(arch).smoke_config(), get_arch(arch).smoke_config()
+        jp = J_lm.init_params(jcfg, jax.random.key(0))
+        tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+        jb, tb = lm_batch(jcfg, 2, 40, seed=3)
+        want = jax.jit(lambda p, b: J_api.compute_loss(jcfg, p, b))(jp, jb)
+        np.testing.assert_allclose(float(api.compute_loss(tcfg, tp, tb)), float(want), rtol=1e-5, err_msg=arch)
