@@ -184,7 +184,17 @@ Phases, in order (any failure exits non-zero):
      7g qwen2-vl-72b: merged embeddings and the M-RoPE triples of a text run
      and one image's grid; prefill and the CLI's loop at 8 of 80 layers,
      training at 2 layers, 1 x 4096; the CPU check at 1 layer;
-  6. the result, printed last (after phase 7g): the kernels' JSON line (``launches`` from each
+  8. the operation counter (``src/repro_torch/launch/op_cost.py``,
+     ``cost_phase``): one train step of phase 5's 4M scene (512 px, batch 4)
+     counted (flops, bytes by op, collectives, the peak live bytes above the
+     arguments against ``max_memory_allocated``, the roofline on H100 terms
+     and its share of phase 5's p50); phase 5's small step (20,000
+     Gaussians, 64 px) counted on the card and on the CPU, the counts equal
+     in total and op by op (the three splatting kernels report the bounds'
+     formulas, ``kernels/cost.py``); the dry run of Qwen3-0.6B's prefill at
+     4 x 4096 on ``card1`` (``launch/dryrun.py``, meta tensors) beside
+     phase 7's measured prefill;
+  6. the result, printed last (after phase 8): the kernels' JSON line (``launches`` from each
      kernel's main path: training for the splatting kernels, the LM prefill
      for attention; ``launches_by_path`` with every path's own counts,
      ``lm_train``, ``moe_prefill``, ``moe_serve_cli`` and ``moe_train`` those
@@ -223,20 +233,9 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA data sheet (SXM)
-H100_FP32_PER_S = 67e12      # float32 outside the tensor cores (SXM)
-H100_BF16_PER_S = 989e12     # bfloat16 dense on the tensor cores, NVIDIA data sheet (SXM)
-# operation counts per unit of work, from the kernels' sources
-GSPROJECT_BYTES_PER_GAUSSIAN = (14 + 11) * 4
-GSPROJECT_OPS_PER_GAUSSIAN = 130  # mul/add/compare incl. 5 exp/rsqrt/sqrt, 2 divisions
-RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T update, 3 color FMAs
-# backward, per composited (pixel, splat): the alpha recomputed (15), T by
-# division, w, dw and the color grads (11), d(alpha) and B (5), d(power) and
-# the five geometry grads (17), and the nine sums over the tile's pixels (9);
-# it starts from the forward's t_final and n_contrib, so no forward walk
-RASTER_BWD_OPS_PER_HIT = 66
 SPIN_CYCLES = 200_000_000         # ~0.1 s at the H100's clock, longer than the timed enqueues
-RASTER_FIELDS_READ = 9            # mx, my, conic a/b/c, opacity, r, g, b (not depth, radius)
+# the H100's peaks (launch/mesh.py) and the kernels' work formulas
+# (kernels/cost.py) come from the package, once it is on the path (main)
 
 
 def log(msg: str) -> None:
@@ -364,32 +363,6 @@ def allclose_report(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: fl
     return float(d.max()) if d.numel() else 0.0, bad
 
 
-def raster_evals(splats_t: torch.Tensor, valid: torch.Tensor, composited: torch.Tensor) -> int:
-    """Alpha evaluations this run's tiles need: each pixel walks its tile's
-    valid splats until the stop rule fires (one past its last composited)."""
-    kv = (valid > 0.5).sum(dim=1, keepdim=True)  # lists are valid-first
-    return int(torch.minimum(kv, composited + 1).sum())
-
-
-def raster_bytes(valid: torch.Tensor, p: int) -> int:
-    """Bytes the rasterizer must move on these lists: the (T, K) float valid
-    mask, the 9 fields it reads of each valid entry, and its (T, 3, P) color
-    and (T, P) transmittance outputs."""
-    n_valid = int((valid > 0.5).sum())
-    return valid.numel() * 4 + n_valid * RASTER_FIELDS_READ * 4 + valid.shape[0] * 4 * p * 4
-
-
-def raster_bwd_bytes(valid: torch.Tensor, p: int) -> int:
-    """Bytes the rasterizer backward's function must move, as the Pallas
-    kernel's ``_run_bwd`` takes it: what the forward reads (valid mask, 9
-    fields of each valid entry), d(rgb) (T, 3, P) and d(t_final) (T, P) read,
-    and the (T, 11, K) gradient slab written. The port's own residuals
-    (t_final, n_contrib) are a design choice, not part of the function."""
-    n_valid = int((valid > 0.5).sum())
-    t_count, k = valid.shape
-    return valid.numel() * 4 + n_valid * RASTER_FIELDS_READ * 4 + t_count * 4 * p * 4 + t_count * 11 * k * 4
-
-
 RASTER_ATOL, RASTER_RTOL = 3e-6, 1e-5  # the North star's forward tolerance (tests/test_tile_raster_kernel.py)
 
 
@@ -439,7 +412,7 @@ def dense_slab(dev, seed: int, tiles_x: int, tiles_y: int, tile: int, k: int):
 
 def tile_load(vf: torch.Tensor, counts: torch.Tensor):
     """Per tile: its valid count and its alpha evaluations (each pixel walks
-    the valid prefix until its stop, as ``raster_evals`` counts)."""
+    the valid prefix until its stop, as ``kernels/cost.py`` ``raster_evals`` counts)."""
     kv = (vf > 0.5).sum(dim=1)
     return kv, torch.minimum(kv[:, None], counts + 1).sum(dim=1)
 
@@ -557,20 +530,15 @@ def ptxas_entries(log_text: str) -> dict:
     return out
 
 
-def attention_pairs(s: int, skv: int, causal: bool, window, q_offset: int) -> int:
-    """Unmasked (query, key) pairs of one (batch, head)."""
-    pos = q_offset + np.arange(s)
-    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros_like(pos)
-    hi = np.minimum(pos, skv - 1) if causal else np.full_like(pos, skv - 1)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: list, counters: dict) -> dict:
     """Phase 7: the attention kernel and the LM serving path at ``cfg``'s
-    widths. Returns the kernel's JSON entry and each path's launch counts."""
+    widths. Returns the kernel's JSON entry, each path's launch counts and
+    the prefill's p50."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
     from repro_torch.models import api, lm
     from repro_torch.models.params import tree_leaves, tree_to
 
@@ -619,19 +587,17 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
                      "scaled_dot_product_attention")
     lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
                      .float() - out.float()).abs().max())
-    pairs = attention_pairs(seq, seq, True, None, 0)
-    flops = 4 * cfg.hd * pairs * batch * cfg.n_heads
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
-    b_ops, b_bytes = flops / H100_BF16_PER_S * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    bound = max(b_ops, b_bytes)
+    pairs = kcost.attention_pairs(seq, seq, True, None, 0)
+    flops, nbytes = kcost.attention_cost(q, k, v, causal=True)
+    bound, bound_by = kcost.bound_ms(flops, nbytes, PEAK_FLOPS_BF16, HBM_BW)
     log(f"time flash_attention {tuple(q.shape)} kv {tuple(k.shape)} bfloat16 causal ({card}): kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s of counted work; host "
         f"{host_us(lambda: fa_ops.launch(q, k, v), 20):.1f} us per launch), plain {plain_ms:.4f} ms (wall per call), "
         f"scaled_dot_product_attention {lib_ms:.4f} ms (max |difference| from the kernel {lib_err:.3e}), bound "
-        f"{bound:.4f} ms ({'operations' if b_ops >= b_bytes else 'bytes'}: {flops} flops = 4 x hd x {pairs} unmasked "
-        f"pairs x B x H at 989 TFLOP/s -> {b_ops:.4f} ms; {nbytes} B of q, k, v, o at 3.35 TB/s -> {b_bytes:.4f} ms)")
+        f"{bound:.4f} ms ({bound_by}: {flops} flops = 4 x hd x {pairs} unmasked pairs x B x H at 989 TFLOP/s; "
+        f"{nbytes} B of q, k, v, o at 3.35 TB/s)")
     log(f"time flash_attention {tuple(q.shape)} kv {tuple(k.shape)} float32 causal ({card}): CUDA-core kernel "
-        f"{f32_ms:.4f} ms ({flops / f32_ms / 1e9:.2f} TFLOP/s of counted work; bound {flops / H100_FP32_PER_S * 1e3:.4f}"
+        f"{f32_ms:.4f} ms ({flops / f32_ms / 1e9:.2f} TFLOP/s of counted work; bound {flops / PEAK_FLOPS_FP32 * 1e3:.4f}"
         f" ms at 67 TFLOP/s float32)")
     del q, k, v, q32, k32, v32, qt, kt, vt, out, gq, gk, gv, grads
 
@@ -726,9 +692,9 @@ def lm_phase(dev, card: str, seed: int, cfg, batch: int, seq: int, cli_argv: lis
              "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/flash_attention.py:23",
              "launches": prefill_launches["flash_attention"], "max_abs_err": bf16_err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
              "library_ms": lib_ms, "float32_ms": f32_ms}
-    return {"entry": entry, "lm_prefill": prefill_launches, "lm_serve_cli": cli_launches}
+    return {"entry": entry, "lm_prefill": prefill_launches, "lm_serve_cli": cli_launches, "prefill_ms": p50}
 
 
 LM_TRAIN_BATCH = 4              # the train_4k sequence; its global batch of 256 cut to 4 for one card
@@ -1059,7 +1025,9 @@ def flash_family_checks(label: str, card: str, shapes: list, dev, gen) -> list:
     events), its bound, ``scaled_dot_product_attention(..., enable_gqa=)``
     and, at the first shape, the float32 kernel and the plain version.
     Returns one timing row per shape."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     rows = []
@@ -1076,14 +1044,12 @@ def flash_family_checks(label: str, card: str, shapes: list, dev, gen) -> list:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True), 10,
                          "scaled_dot_product_attention")
-        pairs = attention_pairs(s, skv, causal, None, 0)
-        flops = 4 * hd * pairs * b * h
-        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
-        b_ops, b_bytes = flops / H100_BF16_PER_S * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        pairs = kcost.attention_pairs(s, skv, causal, None, 0)
+        flops, nbytes = kcost.attention_cost(q, k, v, causal=causal)
+        bound, bound_by = kcost.bound_ms(flops, nbytes, PEAK_FLOPS_BF16, HBM_BW)
         row = {"shape": f"{label} {what}: B {b}, S {s}, Skv {skv}, heads {h}/{hkv}, hd {hd}, "
                         f"{'causal' if causal else 'non-causal'}, bf16",
-               "ms": ms, "max_abs_err": err, "bound_ms": max(b_ops, b_bytes),
-               "bound_by": "operations" if b_ops >= b_bytes else "bytes", "library_ms": lib_ms}
+               "ms": ms, "max_abs_err": err, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms}
         extra = ""
         if i == 0:
             row["float32_ms"] = cuda_ms(lambda: fa_ops.launch(q32, k32, v32, **kw), 3, "flash_attention float32")
@@ -1092,8 +1058,8 @@ def flash_family_checks(label: str, card: str, shapes: list, dev, gen) -> list:
                      "(wall per call)")
         log(f"time flash_attention {row['shape']} ({card}): kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of "
             f"counted work), scaled_dot_product_attention {lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}: {flops} flops = 4 x hd x {pairs} unmasked pairs x B x H at 989 TFLOP/s -> "
-            f"{b_ops:.4f} ms; {nbytes} B at 3.35 TB/s -> {b_bytes:.4f} ms){extra}")
+            f"({bound_by}: {flops} flops = 4 x hd x {pairs} unmasked pairs x B x H at 989 TFLOP/s; {nbytes} B at "
+            f"3.35 TB/s){extra}")
         rows.append(row)
         del q32, k32, v32, q, k, v, qt, kt, vt, out
     return rows
@@ -2334,6 +2300,113 @@ def serve_ranks_phase(dev, card: str, host, cfg, args, counters: dict, one_devic
     return out
 
 
+# ---------------------------------------------------------------- phase 8: the operation counter
+COST_SMALL_POINTS = 20000       # the card-vs-CPU count: phase 5's small step
+COST_SMALL_RES = 64
+
+
+def count_step(step, state, cams, gt) -> tuple:
+    """One train step under ``launch/op_cost.py`` ``OpCost``, ending in the
+    loss read; returns (the new state, the count)."""
+    from repro_torch.launch.op_cost import OpCost
+
+    with OpCost() as counter:
+        state, m = step(state, cams, gt)
+        float(m["loss"])
+    return state, counter.result()
+
+
+def count_diff(a: dict, b: dict) -> list:
+    """The totals and per-op (flops, bytes) where two counts differ."""
+    keys = ("flops", "bytes", "coll_total_moved_bytes")
+    out = [f"{k}: {a[k]} vs {b[k]}" for k in keys if a[k] != b[k]]
+    for op in sorted(set(a["by_op"]) | set(b["by_op"])):
+        x = a["by_op"].get(op, {"flops": 0.0, "bytes": 0.0})
+        y = b["by_op"].get(op, {"flops": 0.0, "bytes": 0.0})
+        if (x["flops"], x["bytes"]) != (y["flops"], y["bytes"]):
+            out.append(f"{op}: flops {x['flops']} vs {y['flops']}, bytes {x['bytes']} vs {y['bytes']}")
+    return out
+
+
+def cost_phase(dev, card: str, host, vol, res: int, step_ms_p50: float, prefill_ms: float) -> dict:
+    """Phase 8: the operation counter on the card. (a) One train step of
+    phase 5's scene (4M Gaussians, 512 px, batch 4, no densification)
+    counted: flops, bytes (the ops classes that hold them), the peak live
+    bytes above the arguments against ``max_memory_allocated``, and the
+    roofline terms on H100 terms (float32 peak, HBM3) against phase 5's p50.
+    (b) Phase 5's small step (20,000 Gaussians, 64 px) counted on the card
+    and on the CPU: the counts must be equal, total and op by op. (c)
+    ``launch/dryrun.py`` ``run_dryrun`` of Qwen3-0.6B's prefill at 4 x 4096
+    on ``card1`` (meta tensors) beside phase 7's measured prefill."""
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.core import gaussians as G
+    from repro_torch.core.train import init_state, make_train_step
+    from repro_torch.data.views import ViewDataset
+    from repro_torch.launch.dryrun import run_dryrun
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
+    from repro_torch.volume.cameras import camera_slice, orbit_cameras
+
+    t_phase = time.perf_counter()
+    # ---- a. the 4M step
+    cfg = paper_gs_config(res)
+    data = ViewDataset(vol, n_views=cfg.batch_size, img_h=cfg.img_h, img_w=cfg.img_w, radius=3.0, device=dev)
+    cams, gt = next(iter(data.batches(cfg.batch_size, steps=1)))
+    step = make_train_step(cfg)
+    state, m = step(init_state(G.from_numpy(host, dev)), cams, gt)  # warm-up
+    float(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    state, r = count_step(step, state, cams, gt)
+    count_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    terms = {"compute": r["flops"] / PEAK_FLOPS_FP32 * 1e3, "memory": r["bytes"] / HBM_BW * 1e3}
+    dom = max(terms, key=terms.get)
+    top = list(r["by_op"].items())[:8]
+    log(f"cost train step {host.means.shape[0]} Gaussians {cfg.img_h} px batch {cfg.batch_size} ({card}): "
+        f"flops {r['flops']:.6e}, bytes {r['bytes']:.6e}, collective bytes {r['coll_total_moved_bytes']}, "
+        f"host<->device bytes {r['transfer_bytes']}; counted in {count_s:.2f} s")
+    log(f"cost train step: roofline compute {terms['compute']:.3f} ms (float32 peak 67 TFLOP/s), memory "
+        f"{terms['memory']:.3f} ms (3.35 TB/s), dominant {dom}; phase 5's step p50 {step_ms_p50:.3f} ms -> roofline "
+        f"share {terms[dom] / step_ms_p50:.4f}")
+    log(f"cost train step: peak live bytes above the arguments {r['peak_live_bytes']} + arguments {base} = "
+        f"{r['peak_live_bytes'] + base} B against max_memory_allocated {peak} B")
+    log("cost train step, bytes by op: " + "; ".join(
+        f"{k} x{v['count']} {v['bytes']:.4e} B ({v['bytes'] / r['bytes']:.4f}), {v['flops']:.4e} flops" for k, v in top))
+    log("cost train step, largest sites: " + "; ".join(
+        f"{t['kind']} {t['shape']} x{t['count']} {t['bytes']:.4e} B" for t in r["top_bytes"][:8]))
+    del data, state, gt, step
+    torch.cuda.empty_cache()
+
+    # ---- b. the same small step counted on the card and on the CPU
+    small = host._replace(**{f: getattr(host, f)[:COST_SMALL_POINTS] for f in host._fields})
+    scfg = paper_gs_config(COST_SMALL_RES)
+    scams = camera_slice(orbit_cameras(12, img_h=COST_SMALL_RES, img_w=COST_SMALL_RES, radius=3.0), torch.arange(4))
+    sgt = ViewDataset(vol, n_views=12, img_h=COST_SMALL_RES, img_w=COST_SMALL_RES, radius=3.0, device=dev).gt[:4]
+    c, c_cpu = (count_step(make_train_step(scfg), init_state(G.from_numpy(small, d)), scams,
+                           torch.tensor(sgt, device=d))[1] for d in (dev, torch.device("cpu")))
+    diff = count_diff(c, c_cpu)
+    log(f"cost small step {COST_SMALL_POINTS} Gaussians {COST_SMALL_RES} px, card vs CPU: flops {c['flops']:.6e} vs "
+        f"{c_cpu['flops']:.6e}, bytes {c['bytes']:.6e} vs {c_cpu['bytes']:.6e}, {len(c['by_op'])} op kinds; "
+        + ("equal, total and op by op" if not diff else "DIFFER: " + "; ".join(diff[:12])))
+    if diff:
+        raise SystemExit("the operation count of the small step differs between the card and the CPU")
+
+    # ---- c. the LM prefill's dry run beside phase 7's measured prefill
+    dr = run_dryrun("qwen3_0_6b", "prefill_32k", mesh="card1", seq_len=LM_SEQ, global_batch=LM_BATCH)
+    rf = dr["roofline"]
+    lm_terms = {k: rf[f"{k}_s"] * 1e3 for k in ("compute", "memory")}
+    log(f"cost dry run qwen3-0.6b prefill {LM_BATCH} x {LM_SEQ} on card1 (meta tensors, counted in {dr['count_s']} s): "
+        f"flops {dr['flops']:.6e}, bytes {dr['bytes']:.6e}, roofline compute {lm_terms['compute']:.3f} ms (bf16 peak "
+        f"989 TFLOP/s), memory {lm_terms['memory']:.3f} ms, dominant {rf['dominant']}, useful flop ratio "
+        f"{dr['useful_flop_ratio']:.4f}, peak estimate {dr['memory_analysis']['peak_estimate_bytes']} B; phase 7's "
+        f"measured prefill p50 {prefill_ms:.3f} ms -> roofline share {max(lm_terms.values()) / prefill_ms:.4f}")
+    log(f"cost phase ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return {"train_flops": r["flops"], "train_bytes": r["bytes"], "train_share": terms[dom] / step_ms_p50,
+            "prefill_share": max(lm_terms.values()) / prefill_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2377,9 +2450,11 @@ def main(argv=None) -> int:
     from repro_torch.data.views import ViewDataset
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.gsproject import ops as gp_ops
     from repro_torch.kernels.gsproject.ref import project_ref
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
     from repro_torch.kernels.tile_raster import ops as tr_ops
     from repro_torch.kernels.tile_raster.ref import (
         composite_bwd_ref,
@@ -2548,11 +2623,11 @@ def main(argv=None) -> int:
     cam_dev = P.Camera(*[torch.as_tensor(x).to(dev) for x in cam])  # no host copy per call
     gp_plain_ms = cuda_ms(lambda: project_ref(g_dev, cam_dev), 5, "gsproject plain")
     n = g_dev.n
-    gp_bound_bytes = n * GSPROJECT_BYTES_PER_GAUSSIAN / H100_BYTES_PER_S * 1e3
-    gp_bound_ops = n * GSPROJECT_OPS_PER_GAUSSIAN / H100_FP32_PER_S * 1e3
+    gp_ops_n, gp_bytes_n = kcost.gsproject_cost(n)
+    gp_bound, gp_bound_by = kcost.bound_ms(gp_ops_n, gp_bytes_n, PEAK_FLOPS_FP32, HBM_BW)
     log(f"time gsproject N={n}: kernel {gp_ms:.4f} ms (host {host_us(lambda: gp_ops.launch(g_dev, cam_vec)):.1f} us "
-        f"per launch), plain {gp_plain_ms:.4f} ms, bound {max(gp_bound_bytes, gp_bound_ops):.4f} ms "
-        f"({n * GSPROJECT_BYTES_PER_GAUSSIAN} B), no library call")
+        f"per launch), plain {gp_plain_ms:.4f} ms, bound {gp_bound:.4f} ms "
+        f"({gp_bound_by}; {gp_bytes_n} B), no library call")
 
     # each rasterizer kernel against its bound and its plain version, the
     # per-tile load, and the densest tile alone (every other tile's valid row
@@ -2575,16 +2650,14 @@ def main(argv=None) -> int:
         ms = cuda_ms(lambda: fwd(splats_t, vf, kw), 20, f"tile_raster {label} kernel")
         ms_alone = cuda_ms(lambda: fwd(splats_t, alone, kw), 20, f"tile_raster {label} densest tile alone")
         plain_ms = cuda_ms(lambda: composite_ref(splats_t, vf, **kw), 3, f"tile_raster {label} plain")
-        evals = raster_evals(splats_t, vf, counts)
-        nbytes = raster_bytes(vf, p_tile)
-        b_ops = evals * RASTER_OPS_PER_EVAL / H100_FP32_PER_S * 1e3
-        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        tr[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_bytes),
-                         bound_by="operations" if b_ops >= b_bytes else "bytes")
+        evals = kcost.raster_evals(vf, counts)
+        ops, nbytes = kcost.raster_fwd_cost(vf, counts, p_tile)
+        bound, bound_by = kcost.bound_ms(ops, nbytes, PEAK_FLOPS_FP32, HBM_BW)
+        tr[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
         full_evals = splats_t.shape[0] * splats_t.shape[2] * p_tile
         log(f"time tile_raster {label} T={splats_t.shape[0]} K={splats_t.shape[2]} ({card}): kernel {ms:.4f} ms (host "
             f"{host_us(lambda: fwd(splats_t, vf, kw)):.1f} us per launch), densest tile alone {ms_alone:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({tr[label]['bound_by']}; "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
             f"{int(kv.sum())} valid entries, {evals} alpha evaluations of {full_evals} before early exit, "
             f"{nbytes} B), no library call")
         ms = cuda_ms(lambda: bwd(splats_t, vf, gout, gtfin, kw, res), 20, f"tile_raster_bwd {label}")
@@ -2593,14 +2666,12 @@ def main(argv=None) -> int:
         plain_ms = cuda_ms(lambda: composite_bwd_ref(splats_t, vf, gout, gtfin, **kw), 3,
                            f"tile_raster_bwd {label} plain")
         hits = int(hits_px.sum())
-        nbytes = raster_bwd_bytes(vf, p_tile)
-        b_ops = hits * RASTER_BWD_OPS_PER_HIT / H100_FP32_PER_S * 1e3
-        b_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        trb[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(b_ops, b_bytes),
-                          bound_by="operations" if b_ops >= b_bytes else "bytes")
+        ops, nbytes = kcost.raster_bwd_cost(vf, hits, p_tile)
+        bound, bound_by = kcost.bound_ms(ops, nbytes, PEAK_FLOPS_FP32, HBM_BW)
+        trb[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
         log(f"time tile_raster_bwd {label} ({card}): kernel {ms:.4f} ms (host "
             f"{host_us(lambda: bwd(splats_t, vf, gout, gtfin, kw, res)):.1f} us per launch), densest tile alone "
-            f"{ms_alone:.4f} ms, plain {plain_ms:.4f} ms, bound {max(b_ops, b_bytes):.4f} ms ({trb[label]['bound_by']}; "
+            f"{ms_alone:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
             f"{hits} composited (pixel, splat) pairs, {nbytes} B), no library call")
 
     # hierarchical vs flat lists at this density (the strip renderer's premise)
@@ -2866,6 +2937,9 @@ def main(argv=None) -> int:
         fam_launches.update(got["launches"])
         fam_rows += got["rows"]
 
+    # ---------------------------------------------------------- 8. the operation counter
+    cost_phase(dev, card, host, vol, args.res, float(np.median(step_ms)), lm_res["prefill_ms"])
+
     # ---------------------------------------------------------- 6. result
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
@@ -2882,8 +2956,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/gsproject/gsproject.py:24", "launches": train_launches[0],
          "launches_by_path": by_path(0, "gsproject"),
          "max_abs_err": gp_err, "ms": gp_ms, "plain_ms": gp_plain_ms,
-         "bound_ms": max(gp_bound_bytes, gp_bound_ops),
-         "bound_by": "bytes" if gp_bound_bytes >= gp_bound_ops else "operations", "library_ms": None},
+         "bound_ms": gp_bound, "bound_by": gp_bound_by, "library_ms": None},
         {"name": "tile_raster_fwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/tile_raster.cu",
          "replaces": "src/repro/kernels/tile_raster/tile_raster.py:102", "launches": train_launches[1],
          "launches_by_path": by_path(1, "tile_raster_fwd"),

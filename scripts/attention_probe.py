@@ -35,6 +35,7 @@ def main() -> int:
         print("attention_probe: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.cost import attention_cost
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -77,7 +78,7 @@ def main() -> int:
     same = torch.equal(fa.launch(q, k, v), out)
     print(f"prefill shape bf16: max_abs_err {err:.3e}, outside {bad}, two launches bitwise equal {same}")
     bad_cases += bool(bad) or not same
-    flops = 4 * 128 * cs.attention_pairs(4096, 4096, True, None, 0) * 4 * 16
+    flops, _ = attention_cost(q, k, v, causal=True)
     ms = cs.cuda_ms(lambda: fa.launch(q, k, v), 20, "bf16 kernel")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = cs.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20,

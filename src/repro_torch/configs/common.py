@@ -3,7 +3,10 @@ of ``configs/common.py``).
 
 The JAX package returns ``ShapeDtypeStruct``s; here every stand-in is a
 tensor on the ``meta`` device: the shape and dtype of each model input,
-cache and parameter, with nothing allocated.
+cache and parameter, with nothing allocated. The one exception is the
+serve step's position, a host value by the step's contract (it indexes the
+cache): ``decode_specs`` gives it as an int32 CPU scalar, so the serve step
+runs on the stand-ins (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -52,12 +55,13 @@ def lm_batch_specs(cfg: ModelConfig, shape: ShapeCase) -> dict:
 
 
 def decode_specs(cfg: ModelConfig, shape: ShapeCase) -> dict:
-    """Stand-ins for serve_step: one new token against a seq_len-deep cache."""
+    """Stand-ins for serve_step: one new token against a seq_len-deep cache,
+    written at its last position (``pos``, an int32 CPU scalar)."""
     b, s = shape.global_batch, shape.seq_len
     return {
         "cache": api.init_cache(cfg, b, s, device="meta"),
         "tokens": _meta((b, 1), "int32"),
-        "pos": _meta((), "int32"),
+        "pos": torch.tensor(s - 1, dtype=torch.int32),
     }
 
 

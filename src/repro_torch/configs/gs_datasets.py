@@ -91,6 +91,8 @@ def pad_dead(g, quantum: int, *, init_scale=None):
     from repro_torch.core.densify import DEAD_LOGIT
 
     pad = (-g.means.shape[0]) % quantum
+    if pad == 0:
+        return g
     dead = G.to_numpy(G.init_from_points(np.full((pad, 3), 1e6, np.float32), np.zeros((pad, 3), np.float32),
                                          init_scale=init_scale, device="cpu"))
     dead = dead._replace(opacity_logit=np.full(pad, DEAD_LOGIT, np.float32))

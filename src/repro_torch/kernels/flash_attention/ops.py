@@ -11,7 +11,10 @@ K and V through shared memory.
 
 It is a ``torch.autograd.Function`` on both devices whose backward is the
 vector-Jacobian product of the plain version, recomputed from the saved
-inputs, as the JAX package's ``custom_vjp`` does with its oracle.
+inputs, as the JAX package's ``custom_vjp`` does with its oracle. The
+forward reports its work to an active operation counter
+(``kernels/cost.py`` ``region``) on both devices; the backward's plain ops
+are counted one by one.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 112, 128)  # head widths the kernel is instantiated for
@@ -72,16 +76,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
     if not _rows_reach_a_key(s, skv, causal, window, q_offset):
         raise ValueError(f"q_offset {q_offset}, window {window}, causal {causal} over Skv {skv} leave a query "
                          "row with no unmasked key; the kernel's result is defined only where every row has one")
-    out = torch.empty_like(q)
     lib = _lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv, h, hkv, hd,
-            int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else int(window), int(q_offset),
-            1.0 / math.sqrt(hd), stream,
-        )
-    _lib.check("flash_attention_fwd", err)
+    with _cost.region("flash_attention") as r:
+        out = torch.empty_like(q)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv, h, hkv, hd,
+                int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else int(window), int(q_offset),
+                1.0 / math.sqrt(hd), stream,
+            )
+        _lib.check("flash_attention_fwd", err)
+        if r:
+            r.report(*_cost.attention_cost(q, k, v, causal=causal, window=window, q_offset=q_offset), out)
     launch_count.n += 1
     return out
 
@@ -96,7 +103,13 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cuda":
             return launch(q, k, v, **ctx.kw)
-        return attention_ref(q, k, v, **ctx.kw)
+        with _cost.region("flash_attention") as r:
+            # contiguous, as the kernel writes it, so that what follows runs
+            # the same ops on both devices
+            out = attention_ref(q, k, v, **ctx.kw).contiguous()
+            if r:
+                r.report(*_cost.attention_cost(q, k, v, **ctx.kw), out)
+        return out
 
     @staticmethod
     def backward(ctx, gout):

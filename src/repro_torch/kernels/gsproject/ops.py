@@ -8,12 +8,14 @@ writes (N, 11) itself: there is no padding, transpose or copy per view. It
 covers SH degree 0 only; a CUDA model with a higher degree raises
 ``NotImplementedError`` rather than falling back.
 
-On a CUDA model the projection is a ``torch.autograd.Function`` whose
-forward is the kernel and whose backward is the vector-Jacobian product of
-``project_ref``, recomputed from the saved inputs, as the JAX package's
-wrapper does with its oracle. No autograd graph of the plain version is
-kept between forward and backward (at 4M Gaussians it would hold GBs per
-view).
+On both devices the projection is a ``torch.autograd.Function`` whose
+forward is the kernel (CUDA) or the plain version (CPU) and whose backward
+is the vector-Jacobian product of ``project_ref``, recomputed from the
+saved inputs, as the JAX package's wrapper does with its oracle. No
+autograd graph of the plain version is kept between forward and backward
+(at 4M Gaussians it would hold GBs per view), and a step runs the same ops
+on both devices. The forward reports its work to an active operation
+counter (``kernels/cost.py`` ``region``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core import gaussians as G
 from repro_torch.kernels import _lib
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.gsproject.ref import project_ref
 
 CAM_SLOTS = 32  # viewmat(16), fx, fy, cx, cy, near, campos(3) -> padded to 32
@@ -57,46 +60,58 @@ def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
     cam = np.ascontiguousarray(cam_vec, np.float32)
     if cam.shape != (CAM_SLOTS,):
         raise ValueError(f"camera vector must be ({CAM_SLOTS},), got {cam.shape}")
-    out = torch.empty((n, 11), dtype=torch.float32, device=dev)
     lib = _lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gsproject_fwd(
-            g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(), g.opacity_logit.data_ptr(),
-            g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, out.data_ptr(), n, blur, stream,
-        )
-    _lib.check("gsproject_fwd", err)
+    with _cost.region("gsproject") as r:
+        out = torch.empty((n, 11), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.gsproject_fwd(
+                g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(), g.opacity_logit.data_ptr(),
+                g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, out.data_ptr(), n, blur, stream,
+            )
+        _lib.check("gsproject_fwd", err)
+        if r:
+            r.report(*_cost.gsproject_cost(n), out)
     launch_count.n += 1
     return out
 
 
 class Project(torch.autograd.Function):
-    """The projection kernel forward; the plain version's VJP backward."""
+    """The projection kernel (CUDA) or plain version (CPU) forward; the
+    plain version's VJP backward."""
 
     @staticmethod
-    def forward(ctx, means, log_scales, quats, opacity_logit, sh, cam, near: float, blur: float):
-        ctx.near, ctx.blur = near, blur
+    def forward(ctx, means, log_scales, quats, opacity_logit, sh, cam, near: float, blur: float, max_radius: float):
+        ctx.near, ctx.blur, ctx.max_radius = near, blur, max_radius
         if any(ctx.needs_input_grad[:5]):
             # the backward's plain version reads the camera on the device; an
             # asynchronous copy now keeps it from synchronizing the stream then
             ctx.cam = type(cam)(*[torch.as_tensor(x).to(means.device, torch.float32, non_blocking=True)
                                   for x in cam])
         ctx.save_for_backward(means, log_scales, quats, opacity_logit, sh)
-        return launch(G.GaussianModel(means, log_scales, quats, opacity_logit, sh), cam_vector(cam, near), blur=blur)
+        g = G.GaussianModel(means, log_scales, quats, opacity_logit, sh)
+        if means.device.type == "cuda":
+            return launch(g, cam_vector(cam, near), blur=blur)
+        with _cost.region("gsproject") as r:
+            out = project_ref(g, cam, near=near, blur=blur, max_radius=max_radius)
+            if r:
+                r.report(*_cost.gsproject_cost(g.n, sh.shape[1]), out)
+        return out
 
     @staticmethod
     def backward(ctx, gpacked):
         leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
         with torch.enable_grad():
-            packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur)
+            packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
+                                 max_radius=ctx.max_radius)
             grads = torch.autograd.grad(packed, leaves, gpacked)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def project_packed(g, cam, *, near: float = 0.01, blur: float = 0.3, max_radius: float = 1e4) -> torch.Tensor:
     """(N, 11) packed splats: the plain version on CPU, the kernel on CUDA."""
     if g.means.device.type != "cuda":
-        return project_ref(g, cam, near=near, blur=blur, max_radius=max_radius)
+        return Project.apply(*g, cam, near, blur, max_radius)
     if g.sh.shape[1] != 1:
         raise NotImplementedError(
             "the CUDA projection kernel covers SH degree 0 only "
@@ -104,4 +119,4 @@ def project_packed(g, cam, *, near: float = 0.01, blur: float = 0.3, max_radius:
         )
     if max_radius != 1e4:
         raise NotImplementedError("the CUDA projection kernel clamps the radius at 1e4")
-    return Project.apply(*g, cam, near, blur)
+    return Project.apply(*g, cam, near, blur, max_radius)

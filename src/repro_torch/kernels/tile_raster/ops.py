@@ -14,7 +14,10 @@ and ``composite_bwd`` backward. The forward also writes each pixel's
 the backward, the Function saves it with ``t_final``, and the backward
 kernel starts from both instead of re-walking the forward. On the CPU it runs the plain
 versions, ``ref.composite_ref`` and ``ref.composite_bwd_ref``. There is no
-fallback: a CUDA tensor either runs the kernel or raises.
+fallback: a CUDA tensor either runs the kernel or raises. Both directions
+report their work to an active operation counter (``kernels/cost.py``
+``region``) on both devices: the bounds' formulas, with the per-pixel stop
+index that ``ref.composited_counts`` gives on the same inputs.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.tile_raster import ref as _ref
 
 MAX_PIXELS = 1024  # one CTA per tile: two pixels a thread forward, one backward
@@ -50,6 +54,18 @@ def _geometry(splats_t: torch.Tensor, tile_h: int, tile_w: int) -> tuple[int, in
     return t_count, k, p
 
 
+def _fwd_cost(splats_t: torch.Tensor, valid: torch.Tensor, kw: dict) -> tuple[int, int]:
+    """The forward's (operations, bytes) on these inputs (``chip_smoke.py``'s bound)."""
+    composited = _ref.composited_counts(splats_t, valid, **kw)
+    return _cost.raster_fwd_cost(valid, composited, kw["tile_h"] * kw["tile_w"])
+
+
+def _bwd_cost(splats_t: torch.Tensor, valid: torch.Tensor, kw: dict) -> tuple[int, int]:
+    """The backward's (operations, bytes) on these inputs (``chip_smoke.py``'s bound)."""
+    hits = int(_ref.composited_counts(splats_t, valid, **kw, live_only=True).sum())
+    return _cost.raster_bwd_cost(valid, hits, kw["tile_h"] * kw["tile_w"])
+
+
 def composite(
     splats_t: torch.Tensor,  # (T, 11, K) float32
     valid: torch.Tensor,     # (T, K) float32, > 0.5 = valid
@@ -66,19 +82,23 @@ def composite(
     dev = splats_t.device
     _check("splats_t", splats_t, (t_count, 11, k), dev)
     _check("valid", valid, (t_count, k), dev)
-    out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
-    tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
-    n_contrib = torch.empty((t_count, p), dtype=torch.int32, device=dev)
-    if t_count > 0:
-        lib = _lib.library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.tile_raster_fwd(
-                splats_t.data_ptr(), valid.data_ptr(), out.data_ptr(), tfin.data_ptr(),
-                n_contrib.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
-            )
-        _lib.check("tile_raster_fwd", err)
-        launch_count.n += 1
+    with _cost.region("tile_raster_fwd") as r:
+        out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
+        tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
+        n_contrib = torch.empty((t_count, p), dtype=torch.int32, device=dev)
+        if t_count > 0:
+            lib = _lib.library()
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = lib.tile_raster_fwd(
+                    splats_t.data_ptr(), valid.data_ptr(), out.data_ptr(), tfin.data_ptr(),
+                    n_contrib.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
+                )
+            _lib.check("tile_raster_fwd", err)
+            launch_count.n += 1
+        if r:
+            kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+            r.report(*_fwd_cost(splats_t, valid, kw), out, tfin, n_contrib)
     return out, tfin, n_contrib
 
 
@@ -104,18 +124,22 @@ def composite_bwd(
                            ("t_final", t_final, (t_count, p))):
         _check(name, x, shape, dev)
     _check("n_contrib", n_contrib, (t_count, p), dev, torch.int32)
-    dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
-    if t_count == 0:
-        return dsplats
-    lib = _lib.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tile_raster_bwd(
-            splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), t_final.data_ptr(),
-            n_contrib.data_ptr(), dsplats.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
-        )
-    _lib.check("tile_raster_bwd", err)
-    bwd_launch_count.n += 1
+    with _cost.region("tile_raster_bwd") as r:
+        dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
+        if t_count > 0:
+            lib = _lib.library()
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = lib.tile_raster_bwd(
+                    splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), t_final.data_ptr(),
+                    n_contrib.data_ptr(), dsplats.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset),
+                    stream,
+                )
+            _lib.check("tile_raster_bwd", err)
+            bwd_launch_count.n += 1
+        if r:
+            kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
+            r.report(*_bwd_cost(splats_t, valid, kw), dsplats)
     return dsplats
 
 
@@ -139,7 +163,11 @@ class Composite(torch.autograd.Function):
         ctx.kw = kw
         if splats_t.device.type != "cuda":
             ctx.save_for_backward(splats_t, valid)
-            return _ref.composite_ref(splats_t, valid, **kw)
+            with _cost.region("tile_raster_fwd") as r:
+                out, tfin = _ref.composite_ref(splats_t, valid, **kw)
+                if r:
+                    r.report(*_fwd_cost(splats_t, valid, kw), out, tfin)
+            return out, tfin
         out, tfin, n_contrib = composite(splats_t, valid, **kw)
         if ctx.needs_input_grad[0]:  # serving keeps no residual
             ctx.save_for_backward(splats_t, valid, tfin, n_contrib)
@@ -154,7 +182,10 @@ class Composite(torch.autograd.Function):
         if splats_t.device.type == "cuda":
             d = composite_bwd(splats_t, valid, gout, gtfin, *res, **ctx.kw)
         else:
-            d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
+            with _cost.region("tile_raster_bwd") as r:
+                d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
+                if r:
+                    r.report(*_bwd_cost(splats_t, valid, ctx.kw), d)
         return d, None, None, None, None, None
 
 

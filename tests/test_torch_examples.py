@@ -8,7 +8,13 @@ the in situ trainer and scrubs them; and the frontend load benchmark's
 mirror (``benchmarks/frontend_load_torch.py --smoke --device cpu``) serves
 its trace in process and over TCP with nothing shed, dropped or refused;
 and ``examples/serve_lm_torch.py`` decodes greedily at a dense and an MoE
-smoke config."""
+smoke config; and the last mirrors: ``examples/quickstart_torch.py`` fits
+an isosurface and prints its PSNR, ``benchmarks/raster_kernel_torch.py``
+prints its plain rows with their H100 bounds, and
+``benchmarks/tile_serving_torch.py --smoke`` and
+``benchmarks/lod_serving_torch.py --smoke`` pass every gate of the JAX
+scripts (bitwise replays and gaze rows, wire bytes, render work, budget) on
+the CPU."""
 import json
 import os
 import subprocess
@@ -103,3 +109,51 @@ def test_serve_lm_mirror_decodes(tmp_path, arch):
     assert lines[-1] == "ok: cache-backed batched decode ran 6 steps"
     ids = np.array([[int(v) for v in ln.strip(" []").split()] for ln in lines[2:-1]])
     assert ids.shape == (4, 6)
+
+
+def test_quickstart_mirror_trains_and_reports_psnr(tmp_path):
+    stdout = _run([str(REPO / "examples" / "quickstart_torch.py"), "--device", "cpu", "--steps", "12"], tmp_path)
+    lines = stdout.splitlines()
+    assert lines[0].startswith("extracted ") and "isosurface points from 'kingsnake_like'" in lines[0]
+    losses = [float(ln.split()[-1]) for ln in lines if ln.startswith("step ")]
+    assert len(losses) == 2 and losses[1] < losses[0]
+    assert lines[-1].startswith("PSNR vs ground truth: ") and float(lines[-1].split()[-2]) > 10.0
+
+
+def test_raster_kernel_mirror_plain_rows(tmp_path):
+    stdout = _run([str(REPO / "benchmarks" / "raster_kernel_torch.py"), "--device", "cpu", "--backends", "plain"],
+                  tmp_path)
+    lines = stdout.splitlines()
+    assert lines[0] == "name,us_per_call,derived"
+    names = [ln.split(",")[0] for ln in lines[1:]]
+    assert names == ["raster_plain_500g_64px", "raster_plain_2000g_128px", "flashattn_plain_512s_4h_64d",
+                     "flashattn_plain_1024s_8h_128d"]
+    for ln in lines[1:]:
+        _, us, derived = ln.split(",")
+        assert float(us) > 0 and derived.startswith("h100_bound_us=")
+    r = subprocess.run([sys.executable, str(REPO / "benchmarks" / "raster_kernel_torch.py"), "--device", "cpu"],
+                       cwd=tmp_path, capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1"))
+    assert r.returncode != 0 and "cuda backend runs the hand kernel on a CUDA device" in r.stderr
+
+
+@pytest.mark.parametrize("bench,ok", [("tile_serving_torch.py", "tile serving ok: "),
+                                      ("lod_serving_torch.py", "lod serving ok: ")])
+def test_serving_mirror_smoke_passes_its_gates(tmp_path, bench, ok):
+    out = tmp_path / "bench.json"
+    stdout = _run([str(REPO / "benchmarks" / bench), "--smoke", "--device", "cpu", "--out", str(out)], tmp_path)
+    assert stdout.splitlines()[-1].startswith(ok)
+    report = json.loads(stdout[stdout.index("{"):stdout.rindex("}") + 1])
+    assert report["device"] == "cpu"
+    rec = json.loads(out.read_text())
+    assert rec["bench"] == bench.removesuffix("_torch.py") and rec["config"]["device"] == "cpu"
+    if bench.startswith("tile"):
+        for trace in ("orbit", "scrub"):
+            assert report[trace]["wire"]["tiles8_bytes"] < report[trace]["wire"]["zdelta8_bytes"]
+            r = report[trace]["renders_per_frame"]
+            assert r["tile_replay"] < r["frame_replay"]
+    else:
+        assert report["dirty"]["auto"]["renders_per_frame"] <= report["dirty"]["hand"]["renders_per_frame"]
+        assert report["foveate"]["foveated"]["cost_units"] < report["foveate"]["uniform"]["cost_units"]
+        assert report["budget"]["coarse_rows"] > 0
+

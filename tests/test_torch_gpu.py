@@ -967,3 +967,73 @@ def test_table1_one_worker_row_at_the_paper_scale(cuda_device, tmp_path):
     assert row["launches"] == {"gsproject": 12, "tile_raster_fwd": 12, "tile_raster_bwd": 12, "flash_attention": 0}
     assert 0 < max(row["peak_bytes"]) < 80e9 and row["fits_80gb"]
     assert 0 < row["device_busy_ms"] and row["nccl_ms"] == 0 and 0 < row["busy_share"] <= 1
+
+
+# ---------------------------------------------------------------- the operation counter and the micro-benchmark
+def _count_diff(a: dict, b: dict) -> list:
+    out = [k for k in ("flops", "bytes", "coll_total_moved_bytes") if a[k] != b[k]]
+    for op in set(a["by_op"]) | set(b["by_op"]):
+        x, y = a["by_op"].get(op, {}), b["by_op"].get(op, {})
+        if (x.get("flops", 0.0), x.get("bytes", 0.0)) != (y.get("flops", 0.0), y.get("bytes", 0.0)):
+            out.append((op, x, y))
+    return out
+
+
+def test_op_cost_of_a_train_step_is_the_same_on_card_and_cpu(cuda_device):
+    """The same small train step counted on both devices: the same ops run
+    (the kernels' regions hide their plain versions on the CPU and report
+    the bounds' formulas on both), so flops, bytes and every op's share are
+    equal, and the backward that autograd runs on its device thread on the
+    card is counted there too."""
+    from repro_torch.launch.op_cost import OpCost
+
+    host = _scene(3000, seed=4, scale=0.03)
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3))
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    counts = []
+    for dev in (cuda_device, torch.device("cpu")):
+        state, gt_d = init_state(G.from_numpy(host, dev)), torch.tensor(gt, device=dev)
+        with OpCost() as c:
+            _, m = make_train_step(cfg)(state, cams, gt_d)
+            float(m["loss"])
+        counts.append(c.result())
+    card, cpu = counts
+    assert card["by_op"]["tile_raster_bwd"]["count"] == 2 and card["by_op"]["convolution_backward"]["count"] == 1
+    assert card["transfer_bytes"] > 0 and cpu["transfer_bytes"] == 0
+    assert not _count_diff(card, cpu), _count_diff(card, cpu)[:10]
+
+
+def test_op_cost_of_an_attention_call_is_the_same_on_card_and_cpu(cuda_device):
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.launch.op_cost import OpCost
+
+    q, k, v = _qkv(2, 96, 160, 4, 2, 64, 7, cuda_device)
+    counts = []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [x.to(dev).detach().requires_grad_() for x in (q, k, v)]
+        with OpCost() as c:
+            out = fa_ops.flash_attention(*leaves, causal=True, window=48, q_offset=64)
+            out.square().sum().backward()
+        counts.append(c.result())
+    assert not _count_diff(*counts), _count_diff(*counts)[:10]
+    want = kcost.attention_cost(q, k, v, causal=True, window=48, q_offset=64)
+    assert (counts[0]["by_op"]["flash_attention"]["flops"], counts[0]["by_op"]["flash_attention"]["bytes"]) == want
+    assert counts[0]["by_op"]["bmm"]["count"] > 0  # the plain VJP, op by op
+
+
+def test_raster_kernel_micro_benchmark_cuda_rows(cuda_device):
+    """``benchmarks/raster_kernel_torch.py``'s cuda rows: CUDA-event device
+    time of the hand kernels at the JAX file's shapes, with the H100 bound."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "benchmarks"))
+    import raster_kernel_torch as rk
+
+    before = (tr_ops.launch_count.n, fa_ops.launch_count.n)
+    rows = rk.rows("cuda", ("cuda",)) + rk.flash_rows("cuda", ("cuda",))
+    assert [r[0] for r in rows] == ["raster_cuda_500g_64px", "raster_cuda_2000g_128px",
+                                    "flashattn_cuda_512s_4h_64d", "flashattn_cuda_1024s_8h_128d"]
+    assert all(us > 0 and derived.startswith("h100_bound_us=") for _, us, derived in rows)
+    assert tr_ops.launch_count.n > before[0] and fa_ops.launch_count.n > before[1]

@@ -170,6 +170,11 @@ def test_specs_equal_jax_for_every_shape(aid):
         assert got == _spec_shapes(J_common.lm_batch_specs(jcfg, J_common.SHAPES[name])), name
         assert all(s[0][0] == shape.global_batch for s in got.values())
         if shape.kind == "decode":
-            got = _spec_shapes(T_common.decode_specs(cfg, shape))
+            specs = T_common.decode_specs(cfg, shape)
+            # the position is a host value (an int32 CPU scalar at the cache's
+            # last slot), so the serve step runs on the stand-ins
+            pos = specs.pop("pos")
+            assert pos.device.type == "cpu" and int(pos) == shape.seq_len - 1
+            got = {**_spec_shapes(specs), "pos": (tuple(pos.shape), str(pos.dtype).removeprefix("torch."))}
             assert got == _spec_shapes(J_common.decode_specs(jcfg, J_common.SHAPES[name])), name
     assert _spec_shapes(T_common.params_specs(cfg)) == _spec_shapes(J_common.params_specs(jcfg))
