@@ -3,7 +3,8 @@
 its plain PyTorch version on the card, time both, serve a 4M-Gaussian
 Kingsnake scene at 512 px through the port's ``RenderServer``, on one
 device and on a mesh of ranks over NCCL, train the same scene for a few
-steps through ``GSTrainer``, on one device and on a mesh of ranks, stream
+steps through ``GSTrainer``, on one device and on a mesh of ranks, and
+at SH degree 3, stream
 a time-varying Miranda volume through the in situ trainer, its temporal
 store and a time-scrubbing server, serve both to TCP clients through the
 network frontend, train at the paper's scale (Miranda's 18.18M Gaussians
@@ -12,7 +13,8 @@ train the full-width Qwen3-0.6B LM through the port's prefill, serve and
 train steps, prefill, serve and train the full-width granite-moe
 (3.3B parameters, 40 experts top-8), and the other families of the
 registry: zamba2-7b (Mamba2 with shared attention at head width 112),
-xlstm-350m, whisper-tiny and qwen2-vl-72b (M-RoPE).
+xlstm-350m, whisper-tiny and qwen2-vl-72b (M-RoPE); last, the port's
+static-analysis CLI over the checkout.
 
     python3 chip_smoke.py [--seed 0] [--points 4000000] [--res 512] [--train-steps 6]
     python3 chip_smoke.py --ranks-only    # the phases across ranks alone, e.g. on several cards
@@ -30,16 +32,18 @@ Phases, in order (any failure exits non-zero):
      kernels' and the bf16 attention instances' registers and spill bytes
      from ptxas; the rasterizer kernels' resident CTAs per SM;
   2. each kernel against its plain version at the main path's shapes: the
-     rasterizer forward at atol 3e-6 / rtol 1e-5 on every pixel and channel
-     of the frame, a strip, the flat lists and a dense slab (the view an
+     projection at SH degree 0 and, on the same 4M scene with random bands
+     1-3 from the seed, at degrees 1, 2 and 3 (atol/rtol 2e-5, two launches
+     bitwise equal); the rasterizer forward at atol 3e-6 / rtol 1e-5 on
+     every pixel and channel of the frame, a strip, the flat lists and a dense slab (the view an
      isosurface fills: 1,024 tiles, K 256, every slot valid; and at K 250,
      staged by 4-byte copies), its n_contrib
      equal to the plain version's and two launches bitwise equal; the
      backward fed the forward's residuals, with d(out) from a real loss and
      a random one, two launches bitwise equal;
-  3. each kernel and its plain version timed with CUDA events; for the
-     rasterizer, per-tile load (valid entries and alpha evaluations: max,
-     p99, p50, mean) and each kernel's time on the densest tile alone;
+  3. each kernel and its plain version timed with CUDA events (the
+     projection at each SH degree beside its bound); for the rasterizer,
+     per-tile load (valid entries and alpha evaluations: max, p99, p50, mean) and each kernel's time on the densest tile alone;
   4. serving: a few orbit clients through the port's RenderServer, with
      the launch counters zeroed just before and read just after, then a
      localized update and two revisited poses (strips); the device busy
@@ -76,6 +80,14 @@ Phases, in order (any failure exits non-zero):
      with two or more cards, (1, 2) and (1, 4) in both modes over NCCL
      with one rank per card, 8 steps each, the losses held to the
      one-device trainer at rtol 1e-5, step p50 beside its;
+  5f. (run after 5b, on phase 5's views) SH degrees 1-3 (``sh_phase``):
+     ``GSTrainer`` at ``sh_degree=3`` on phase 4's 4M scene with random
+     bands 1-3, 512 px, batch 4, 5 steps, densification off, the counters
+     zeroed just before and read just after (4 a step of each splatting
+     kernel): step ms p50, peak memory, the per-stage split and the busy
+     share of one step; phase 5's small step (20,000 Gaussians, 64 px) at
+     SH degrees 1 and 2 on the card against the CPU path (loss rtol 1e-5,
+     gradients as the backward), each with its launches;
   5c. in situ: ``InsituTrainer`` over the Miranda growth stream (4
      timesteps of a 256^3 field; capacity 1.5x the first extraction) at
      ``paper_gs_config(512)`` with densification off, 8 orbit views
@@ -194,9 +206,15 @@ Phases, in order (any failure exits non-zero):
      formulas, ``kernels/cost.py``); the dry run of Qwen3-0.6B's prefill at
      4 x 4096 on ``card1`` (``launch/dryrun.py``, meta tensors) beside
      phase 7's measured prefill;
-  6. the result, printed last (after phase 8): the kernels' JSON line (``launches`` from each
+  9. the static passes: ``python -m repro_torch.launch.analyze -q --report
+     build/repro_torch_analysis/report.json`` over the checkout in its own
+     process (this machine has no JAX), exit 0 against the committed
+     baseline; the findings and the CLI's elapsed ms;
+  6. the result, printed last (after phase 9): the kernels' JSON line (``launches`` from each
      kernel's main path: training for the splatting kernels, the LM prefill
-     for attention; ``launches_by_path`` with every path's own counts,
+     for attention; the projection at SH degrees 1-3 as ``gsproject_sh1``
+     to ``_sh3``, each with its own degree's launches from phase 5f;
+     ``launches_by_path`` with every path's own counts,
      ``lm_train``, ``moe_prefill``, ``moe_serve_cli`` and ``moe_train`` those
      of phases 7b and 7c, ``<family>_prefill``, ``_serve_cli`` and ``_train``
      those of 7d-7g for zamba, xlstm, whisper and vlm, ``family_shapes`` the
@@ -222,6 +240,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1734,8 +1753,8 @@ PAPER_HIGH_RES, PAPER_HIGH_STEPS, PAPER_HIGH_VIEWS = 2048, 3, 4  # Kingsnake 4M 
 WORKER_HBM, CARD_HBM = 40e9, 80e9  # the paper's A100 and this card
 
 
-def paper_fit(dev, card: str, label: str, host, data, res: int, steps: int, counters: dict) -> tuple:
-    """``steps`` steps of ``GSTrainer`` at ``paper_gs_config(res)``,
+def paper_fit(dev, card: str, label: str, host, data, res: int, steps: int, counters: dict, **cfg_kw) -> tuple:
+    """``steps`` steps of ``GSTrainer`` at ``paper_gs_config(res, **cfg_kw)``,
     densification off, with a span trace, the launch counters zeroed just
     before and read just after: fails on a non-finite loss or unless each
     splatting kernel launched 4 times a step (and attention never). Prints
@@ -1747,7 +1766,7 @@ def paper_fit(dev, card: str, label: str, host, data, res: int, steps: int, coun
     from repro_torch.obs import Obs, spans_to_jsonl
     from repro_torch.obs.replay import load_trace, train_stage_breakdown
 
-    cfg = paper_gs_config(res, max_steps=steps)
+    cfg = paper_gs_config(res, max_steps=steps, **cfg_kw)
     data.rng = np.random.default_rng(0)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1813,6 +1832,83 @@ def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, king
     del tr, data
     torch.cuda.empty_cache()
     return {k: launches[k] + more[k] for k in launches}
+
+
+# ---------------------------------------------------------------- phase 5f: SH degrees 1-3
+SH_TRAIN_STEPS = 5
+
+
+def sh_bands(n: int, seed: int) -> np.ndarray:
+    """(n, 15, 3) coefficients of SH bands 1-3, random from ``seed``."""
+    return np.random.default_rng(seed + 3).normal(0, 0.1, (n, 15, 3)).astype(np.float32)
+
+
+def with_sh_degree(g, degree: int, seed: int):
+    """Host model ``g`` at SH ``degree``: its DC term and ``sh_bands``."""
+    n = g.means.shape[0]
+    return g._replace(sh=np.concatenate([g.sh[:, :1], sh_bands(n, seed)[:, : (degree + 1) ** 2 - 1]], axis=1))
+
+
+def sh_scene_models(g, seed: int, dev) -> dict:
+    """Device model ``g`` at SH degrees 1, 2 and 3 (its DC term and
+    ``sh_bands``), each degree's coefficients contiguous."""
+    sh = torch.cat([g.sh[:, :1], torch.from_numpy(sh_bands(g.n, seed)).to(dev)], dim=1)
+    return {d: g._replace(sh=sh[:, : (d + 1) ** 2].contiguous()) for d in (1, 2, 3)}
+
+
+def sh_phase(dev, card: str, seed: int, host, vol, data, res: int, counters: dict) -> dict:
+    """Phase 5f: ``GSTrainer`` at ``sh_degree=3`` on phase 4's 4M scene (its
+    DC term, bands 1-3 from ``sh_bands``) at ``paper_gs_config(res)``, batch
+    4, on phase 5's views, ``SH_TRAIN_STEPS`` steps with densification off
+    (``paper_fit``: the counters zeroed just before and read just after, 4
+    a step of each splatting kernel), and the busy share of one step; then
+    phase 5's small step (20,000 Gaussians, 64 px) at SH degrees 1 and 2 on
+    the card against the CPU path, each with its launches. Returns the
+    launches of each degree's path."""
+    from repro_torch.configs.gs_datasets import paper_gs_config
+    from repro_torch.core import gaussians as G
+    from repro_torch.core.train import init_state, make_train_step
+    from repro_torch.data.views import ViewDataset
+    from repro_torch.volume.cameras import camera_slice, orbit_cameras
+
+    out = {}
+    tr, _, p50, out[3], _ = paper_fit(dev, card, f"SH degree 3, kingsnake 4M at {res} px",
+                                      with_sh_degree(host, 3, seed), data, res, SH_TRAIN_STEPS, counters,
+                                      sh_degree=3)
+    if tuple(tr.state.params.sh.shape[1:]) != (16, 3):
+        raise SystemExit(f"SH degree 3 trainer holds sh {tuple(tr.state.params.sh.shape)}")
+    cams_b, gt_b = next(iter(data.batches(4, steps=1)))
+    profile_step(lambda: tr.step_fn(tr.state, cams_b, gt_b), p50, label=f"SH degree 3 train step (4M, {res} px)")
+    del tr
+    torch.cuda.empty_cache()
+
+    small = host._replace(**{f: getattr(host, f)[: COST_SMALL_POINTS] for f in host._fields})
+    scams = camera_slice(orbit_cameras(12, img_h=64, img_w=64, radius=3.0), torch.arange(4))
+    sgt = ViewDataset(vol, n_views=12, img_h=64, img_w=64, radius=3.0, device=dev).gt[:4]
+    for degree in (1, 2):
+        step = make_train_step(paper_gs_config(64, sh_degree=degree))
+        small_d = with_sh_degree(small, degree, seed)
+        res_small = []
+        for j, d in enumerate((dev, torch.device("cpu"))):
+            for c in counters.values():
+                c.n = 0
+            st, m = step(init_state(G.from_numpy(small_d, d)), scams, torch.tensor(sgt, device=d))
+            res_small.append((float(m["loss"]), [x.cpu() / 0.1 for x in st.adam.m]))  # m = 0.1 g after one step
+            if j == 0:  # the card's launches
+                out[degree] = {k: c.n for k, c in counters.items()}
+        (l_k, g_k), (l_c, g_c) = res_small
+        gerr = max(grad_report(a, b)[0] for a, b in zip(g_k, g_c))
+        gbad = sum(grad_report(a, b)[1] for a, b in zip(g_k, g_c))
+        sh_g = float(g_c[4][:, 1:].abs().max())
+        log(f"small train step at SH degree {degree}, {COST_SMALL_POINTS} Gaussians at 64 px, card vs CPU path: loss "
+            f"{l_k:.7f} vs {l_c:.7f}, gradients max_abs_err {gerr:.3e}, entries outside atol 2e-5*max|g|/rtol 2e-4: "
+            f"{gbad}; max |g| of the bands above DC {sh_g:.3e}; card launches {out[degree]}")
+        if abs(l_k - l_c) > 1e-5 * abs(l_c) or gbad or not sh_g > 0:
+            raise SystemExit(f"card train step at SH degree {degree} disagrees with the CPU path on a small input")
+        if list(out[degree].values()) != [4, 4, 4, 0]:
+            raise SystemExit(f"small step at SH degree {degree}: launches {out[degree]}, want 4 of each splatting "
+                             "kernel and no attention")
+    return out
 
 
 def paper_ranks_phase(dev, card: str, seed: int, counters: dict) -> dict:
@@ -2407,6 +2503,32 @@ def cost_phase(dev, card: str, host, vol, res: int, step_ms_p50: float, prefill_
             "prefill_share": max(lm_terms.values()) / prefill_ms}
 
 
+# ---------------------------------------------------------------- phase 9: the static passes
+ANALYSIS_DIR = ROOT / "build" / "repro_torch_analysis"
+
+
+def analysis_phase(card: str) -> None:
+    """Phase 9: the port's static-analysis CLI (``src/repro_torch/launch/analyze.py``)
+    over this checkout, as a user runs it, in its own process on this
+    machine, which has no JAX: it must exit 0 against the committed
+    ``ANALYSIS_baseline.json``. Prints the findings, the pragma-allowed
+    ones, the CLI's own elapsed ms and the process's wall ms; fails on any
+    other exit code."""
+    ANALYSIS_DIR.mkdir(parents=True, exist_ok=True)
+    report = ANALYSIS_DIR / "report.json"
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.analyze", "-q", "--report", str(report)],
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, capture_output=True,
+                         text=True, timeout=300)
+    wall = (time.perf_counter() - t0) * 1e3
+    if out.returncode != 0:
+        raise SystemExit(f"analysis CLI exited {out.returncode}:\n{out.stdout}\n{out.stderr}")
+    rep = json.loads(report.read_text())
+    log(f"analysis CLI ({card}): exit 0, {rep['findings']} findings ({rep['allowed']} pragma-allowed; by rule "
+        f"{rep['by_rule']}), baseline entries {rep['baseline']['entries']}, new {rep['baseline']['new']}; elapsed "
+        f"{rep['elapsed_s'] * 1e3:.0f} ms (the CLI's own clock), process wall {wall:.0f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2530,6 +2652,18 @@ def main(argv=None) -> int:
     log(f"compare gsproject N={g_dev.n}: max_abs_err {gp_err:.3e}, entries outside atol 2e-5/rtol 2e-5: {gp_bad}")
     if gp_bad:
         raise SystemExit("gsproject disagrees with its plain version")
+    # SH degrees 1-3: the same scene with random higher bands from the seed
+    sh_models, sh_err = sh_scene_models(g_dev, args.seed, dev), {}
+    for d, g_sh in sh_models.items():
+        k_sh = gp_ops.project_packed(g_sh, cam)
+        err, bad = allclose_report(k_sh, project_ref(g_sh, cam), 2e-5, 2e-5)
+        same = torch.equal(gp_ops.project_packed(g_sh, cam), k_sh)
+        log(f"compare gsproject SH degree {d} ({g_sh.sh.shape[1]} coefficients) N={g_sh.n}: max_abs_err {err:.3e}, "
+            f"entries outside atol 2e-5/rtol 2e-5: {bad}; two launches bitwise equal: {same}")
+        if bad or not same:
+            raise SystemExit(f"gsproject at SH degree {d} disagrees with its plain version or with itself")
+        sh_err[d] = err
+    del k_sh
 
     pk_sorted, _ = P.sort_by_depth(proj_k)
     tiles_x = cfg.img_w // cfg.tile_w
@@ -2628,6 +2762,18 @@ def main(argv=None) -> int:
     log(f"time gsproject N={n}: kernel {gp_ms:.4f} ms (host {host_us(lambda: gp_ops.launch(g_dev, cam_vec)):.1f} us "
         f"per launch), plain {gp_plain_ms:.4f} ms, bound {gp_bound:.4f} ms "
         f"({gp_bound_by}; {gp_bytes_n} B), no library call")
+    sh_rows = {}
+    for d, g_sh in sh_models.items():
+        sh_ms = cuda_ms(lambda: gp_ops.launch(g_sh, cam_vec), 20, f"gsproject SH degree {d} kernel")
+        sh_plain_ms = cuda_ms(lambda: project_ref(g_sh, cam_dev), 5, f"gsproject SH degree {d} plain")
+        sh_ops, sh_bytes = kcost.gsproject_cost(n, g_sh.sh.shape[1])
+        sh_bound, sh_bound_by = kcost.bound_ms(sh_ops, sh_bytes, PEAK_FLOPS_FP32, HBM_BW)
+        sh_rows[d] = dict(max_abs_err=sh_err[d], ms=sh_ms, plain_ms=sh_plain_ms, bound_ms=sh_bound,
+                          bound_by=sh_bound_by)
+        log(f"time gsproject SH degree {d} ({g_sh.sh.shape[1]} coefficients) N={n} ({card}): kernel {sh_ms:.4f} ms, "
+            f"plain {sh_plain_ms:.4f} ms, bound {sh_bound:.4f} ms ({sh_bound_by}; {sh_bytes} B, {sh_ops} operations), "
+            f"kernel / bound {sh_ms / sh_bound:.3f}, no library call")
+    del sh_models
 
     # each rasterizer kernel against its bound and its plain version, the
     # per-tile load, and the densest tile alone (every other tile's valid row
@@ -2905,6 +3051,9 @@ def main(argv=None) -> int:
     log(f"ranks ({card}): world-1 sharded step p50 {ranks['step_ms']} ms, one-device step in the same phase "
         f"{ranks['one_device_step_ms']} ms, phase 5's one-device p50 {float(np.median(step_ms)):.3f} ms; launches "
         f"{ranks_launches}")
+
+    # ---------------------------------------------------------- 5f. SH degrees 1-3
+    sh_launches = sh_phase(dev, card, args.seed, host, vol, data, args.res, counters)
     del data
 
     # ---------------------------------------------------------- 5c. in situ
@@ -2940,6 +3089,9 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------- 8. the operation counter
     cost_phase(dev, card, host, vol, args.res, float(np.median(step_ms)), lm_res["prefill_ms"])
 
+    # ---------------------------------------------------------- 9. the static passes
+    analysis_phase(card)
+
     # ---------------------------------------------------------- 6. result
     log(f"total {time.perf_counter() - t_all:.1f} s")
 
@@ -2967,6 +3119,14 @@ def main(argv=None) -> int:
          "max_abs_err": bwd_err, **trb["frame"], "library_ms": None},
         {**lm_res["entry"], "launches_by_path": by_path(3, "flash_attention"), "family_shapes": fam_rows},
     ]
+    # the projection at SH degrees 1-3: each degree's launches from its own
+    # path (phase 5f: the 4M trainer at degree 3, the small steps at 1 and 2)
+    for d in (1, 2, 3):
+        kernels.insert(d, {
+            "name": f"gsproject_sh{d}", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",
+            "replaces": "src/repro/kernels/gsproject/gsproject.py:24", "sh_degree": d,
+            "launches": sh_launches[d]["gsproject"], "launches_by_path": {"sh_train": sh_launches[d]["gsproject"]},
+            **sh_rows[d], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,8 +2,8 @@
 copy of the JAX package's ``analysis/tsan.py`` for the port's threaded
 classes. The same variable switches both packages' copies on.
 
-The static pass (the JAX package's ``analysis/locks.py``, which scans the
-port too) sees spelled-out ``self.x``
+The static pass (the port's ``analysis/locks.py``, a copy of the JAX
+package's) sees spelled-out ``self.x``
 writes; it cannot see aliased mutation (``d = self._index; d["k"] = v``) or
 prove a happens-before discipline actually holds at runtime. This module is
 the dynamic complement: instances at the known thread boundaries (gateway,

@@ -32,6 +32,13 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 # operation counts per unit of work, from the kernels' sources
 GSPROJECT_BYTES_PER_GAUSSIAN = (14 + 11) * 4
 GSPROJECT_OPS_PER_GAUSSIAN = 130  # mul/add/compare incl. 5 exp/rsqrt/sqrt, 2 divisions
+# the SH color above degree 0, per Gaussian, band by band as gsproject.cu's
+# eval_sh_color does it (eval_sh's `k > 1`, `k > 4`, `k > 9` tests):
+# band 1: the direction (3 subtractions, the norm's 3 squares, 2 sums, sqrt
+# and + eps, 3 divisions), -y, and 7 a channel; band 2: the 6 products of
+# the direction, 9 for the 5 basis factors, and 10 a channel; band 3: 28
+# for the 7 basis factors and 14 a channel
+GSPROJECT_SH_BAND_OPS = ((1, 14 + 21), (4, 15 + 30), (9, 28 + 42))
 RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T update, 3 color FMAs
 # backward, per composited (pixel, splat): the alpha recomputed (15), T by
 # division, w, dw and the color grads (11), d(alpha) and B (5), d(power) and
@@ -73,10 +80,11 @@ def region(name: str):
 
 
 def gsproject_cost(n: int, sh_coeffs: int = 1) -> tuple[int, int]:
-    """(operations, bytes) of projecting ``n`` Gaussians: the kernel's count
-    at SH degree 0 (``sh_coeffs`` 1); a higher degree (the plain version
-    only) reads its extra coefficients."""
-    return n * GSPROJECT_OPS_PER_GAUSSIAN, n * (GSPROJECT_BYTES_PER_GAUSSIAN + 12 * (sh_coeffs - 1))
+    """(operations, bytes) of projecting ``n`` Gaussians with ``sh_coeffs``
+    SH coefficients per channel (1, 4, 9, 16 for degrees 0-3): the
+    projection, the SH color's bands, and each extra coefficient's 12 bytes."""
+    ops = GSPROJECT_OPS_PER_GAUSSIAN + sum(band for above, band in GSPROJECT_SH_BAND_OPS if sh_coeffs > above)
+    return n * ops, n * (GSPROJECT_BYTES_PER_GAUSSIAN + 12 * (sh_coeffs - 1))
 
 
 def raster_evals(valid: torch.Tensor, composited: torch.Tensor) -> int:

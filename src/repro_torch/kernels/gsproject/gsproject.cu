@@ -1,7 +1,9 @@
-// EWA projection of 3D Gaussians to packed screen-space splats (SH degree 0).
+// EWA projection of 3D Gaussians to packed screen-space splats (SH degrees 0-3).
 //
 // Replaces the JAX package's Pallas TPU kernel
-// src/repro/kernels/gsproject/gsproject.py::_kernel (launched by make_project.run).
+// src/repro/kernels/gsproject/gsproject.py::_kernel (launched by make_project.run),
+// which covers SH degree 0; the JAX wrapper sends degrees 1-3 to its oracle,
+// and this kernel computes those too.
 //
 // What bounds it on an H100: bytes. Each Gaussian reads 14 floats (means 3,
 // log-scales 3, quats 4, opacity logit 1, SH DC 3) and writes 11, i.e. 100 B,
@@ -24,6 +26,15 @@
 // no padding. The arithmetic follows the plain PyTorch version
 // (kernels/gsproject/ref.py) operation for operation; the library is built
 // without FMA contraction so both round alike.
+//
+// SH degrees 1-3: the number of coefficients per channel (1, 4, 9 or 16) is
+// a template parameter, one instantiation per degree, so degree 0 compiles
+// to the code it always was. Above degree 0 the thread that writes a row
+// also evaluates its view-dependent color from the model's own (N, C, 3)
+// rows through `sh_stride` (no layout copy): the direction from the camera
+// position to the mean, normalized as (means - campos) / (norm + 1e-12),
+// then the bands summed term by term in core/gaussians.py eval_sh's order,
+// + 0.5 and the clamp to [0, 1]. The bytes grow by 12 (C - 1) per Gaussian.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,8 +47,77 @@ struct CamArgs {
 
 constexpr int kThreads = 256;
 constexpr int kFields = 11;  // MX, MY, conic a/b/c, opacity, r, g, b, depth, radius
-constexpr float kShC0 = 0.28209479177387814f;
+// the SH basis constants as PyTorch rounds eval_sh's Python floats: the
+// double literal cast to float
+constexpr float kShC0 = static_cast<float>(0.28209479177387814);
+constexpr float kShC1 = static_cast<float>(0.4886025119029199);
+constexpr float kShC2a = static_cast<float>(1.0925484305920792);
+constexpr float kShC2b = static_cast<float>(-1.0925484305920792);
+constexpr float kShC2c = static_cast<float>(0.31539156525252005);
+constexpr float kShC2d = static_cast<float>(0.5462742152960396);
+constexpr float kShC3a = static_cast<float>(-0.5900435899266435);
+constexpr float kShC3b = static_cast<float>(2.890611442640554);
+constexpr float kShC3c = static_cast<float>(-0.4570457994644658);
+constexpr float kShC3d = static_cast<float>(0.3731763325901154);
+constexpr float kShC3e = static_cast<float>(1.445305721320277);
 
+// rgb[c] = eval_sh(sh row, dir)[c] before the clamp, for kCoeffs
+// coefficients per channel. `row` is the Gaussian's (kCoeffs, 3) block.
+// Each product and sum is written in eval_sh's association order; the
+// per-Gaussian factors (the basis functions times their constants) are
+// formed once and shared by the three channels, as eval_sh's (N, 1)
+// factors broadcast over them.
+template <int kCoeffs>
+__device__ __forceinline__ void eval_sh_color(const float* __restrict__ row, float mx, float my, float mz,
+                                              float px, float py, float pz, float rgb[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[c] = kShC0 * row[c];
+  if constexpr (kCoeffs > 1) {
+    float x = mx - px, y = my - py, z = mz - pz;
+    const float nrm = sqrtf(x * x + y * y + z * z) + static_cast<float>(1e-12);
+    x = x / nrm;
+    y = y / nrm;
+    z = z / nrm;
+    const float ny = -y;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float t = ny * row[3 + c] + z * row[6 + c] - x * row[9 + c];
+      rgb[c] = rgb[c] + kShC1 * t;
+    }
+    if constexpr (kCoeffs > 4) {
+      const float xx = x * x, yy = y * y, zz = z * z, xy = x * y, yz = y * z, xz = x * z;
+      const float f4 = kShC2a * xy;
+      const float f5 = kShC2b * yz;
+      const float f6 = kShC2c * (2.0f * zz - xx - yy);
+      const float f7 = kShC2b * xz;
+      const float f8 = kShC2d * (xx - yy);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float t = f4 * row[12 + c] + f5 * row[15 + c] + f6 * row[18 + c] + f7 * row[21 + c] +
+                        f8 * row[24 + c];
+        rgb[c] = rgb[c] + t;
+      }
+      if constexpr (kCoeffs > 9) {
+        const float zz4 = 4.0f * zz - xx - yy;
+        const float f9 = kShC3a * y * (3.0f * xx - yy);
+        const float f10 = kShC3b * x * y * z;
+        const float f11 = kShC3c * y * zz4;
+        const float f12 = kShC3d * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
+        const float f13 = kShC3c * x * zz4;
+        const float f14 = kShC3e * z * (xx - yy);
+        const float f15 = kShC3a * x * (xx - 3.0f * yy);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float t = f9 * row[27 + c] + f10 * row[30 + c] + f11 * row[33 + c] + f12 * row[36 + c] +
+                          f13 * row[39 + c] + f14 * row[42 + c] + f15 * row[45 + c];
+          rgb[c] = rgb[c] + t;
+        }
+      }
+    }
+  }
+}
+
+template <int kCoeffs>
 __global__ void __launch_bounds__(kThreads)
 gsproject_fwd_kernel(const float* __restrict__ means, const float* __restrict__ log_scales,
                      const float* __restrict__ quats, const float* __restrict__ opac_logit,
@@ -122,11 +202,13 @@ gsproject_fwd_kernel(const float* __restrict__ means, const float* __restrict__ 
     const float lam1 = mid + sqrtf(fmaxf(mid * mid - det, 0.0f));
     const float radius = fminf(ceilf(3.0f * sqrtf(fmaxf(lam1, 0.0f))), 1e4f);
 
-    const float* sh0 = sh + static_cast<size_t>(i) * sh_stride;
     const float opac = 1.0f / (1.0f + expf(-opac_logit[i]));
-    const float cr = fminf(fmaxf(kShC0 * sh0[0] + 0.5f, 0.0f), 1.0f);
-    const float cg = fminf(fmaxf(kShC0 * sh0[1] + 0.5f, 0.0f), 1.0f);
-    const float cb = fminf(fmaxf(kShC0 * sh0[2] + 0.5f, 0.0f), 1.0f);
+    float rgb[3];
+    eval_sh_color<kCoeffs>(sh + static_cast<size_t>(i) * sh_stride, mx, my, mz, cam.v[21], cam.v[22], cam.v[23],
+                           rgb);
+    const float cr = fminf(fmaxf(rgb[0] + 0.5f, 0.0f), 1.0f);
+    const float cg = fminf(fmaxf(rgb[1] + 0.5f, 0.0f), 1.0f);
+    const float cb = fminf(fmaxf(rgb[2] + 0.5f, 0.0f), 1.0f);
 
     float* o = staged + t * kFields;
     o[0] = mean_x;
@@ -152,17 +234,36 @@ gsproject_fwd_kernel(const float* __restrict__ means, const float* __restrict__ 
 
 // Plain C launcher (bound with ctypes). `cam` is a HOST pointer to 32 floats,
 // copied into the by-value kernel argument; `sh_stride` is the float stride
-// between two Gaussians' SH rows (3 * coefficients per channel). Returns
-// cudaGetLastError().
+// between two Gaussians' SH rows (3 * coefficients per channel: 3, 12, 27 or
+// 48 for degrees 0-3; any other stride is refused with
+// cudaErrorInvalidValue). Returns cudaGetLastError().
 extern "C" int gsproject_fwd(const float* means, const float* log_scales, const float* quats,
                              const float* opac_logit, const float* sh, int sh_stride, const float* cam,
                              float* out, int n, float blur, void* stream) {
   CamArgs args;
   for (int k = 0; k < 32; ++k) args.v[k] = cam[k];
   const int blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    gsproject_fwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        means, log_scales, quats, opac_logit, sh, sh_stride, args, out, n, blur);
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (sh_stride) {
+    case 3:
+      gsproject_fwd_kernel<1><<<blocks, kThreads, 0, st>>>(means, log_scales, quats, opac_logit, sh, sh_stride,
+                                                           args, out, n, blur);
+      break;
+    case 12:
+      gsproject_fwd_kernel<4><<<blocks, kThreads, 0, st>>>(means, log_scales, quats, opac_logit, sh, sh_stride,
+                                                           args, out, n, blur);
+      break;
+    case 27:
+      gsproject_fwd_kernel<9><<<blocks, kThreads, 0, st>>>(means, log_scales, quats, opac_logit, sh, sh_stride,
+                                                           args, out, n, blur);
+      break;
+    case 48:
+      gsproject_fwd_kernel<16><<<blocks, kThreads, 0, st>>>(means, log_scales, quats, opac_logit, sh, sh_stride,
+                                                            args, out, n, blur);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

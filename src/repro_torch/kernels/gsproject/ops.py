@@ -5,8 +5,10 @@ CPU runs the plain version (``ref.project_ref``); a model on a CUDA device
 runs ``gsproject.cu`` on the model's own tensors, with the camera passed as a
 32-float launch argument laid out as the JAX wrapper lays it out. The kernel
 writes (N, 11) itself: there is no padding, transpose or copy per view. It
-covers SH degree 0 only; a CUDA model with a higher degree raises
-``NotImplementedError`` rather than falling back.
+covers SH degrees 0-3 (1, 4, 9 or 16 coefficients per channel, the range of
+``core/gaussians.py`` ``eval_sh``); a CUDA model above degree 3 raises
+``NotImplementedError`` naming its degree rather than falling back. On the
+CPU the plain version keeps ``eval_sh``'s behaviour, as the JAX oracle does.
 
 On both devices the projection is a ``torch.autograd.Function`` whose
 forward is the kernel (CUDA) or the plain version (CPU) and whose backward
@@ -28,6 +30,7 @@ from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.gsproject.ref import project_ref
 
 CAM_SLOTS = 32  # viewmat(16), fx, fy, cx, cy, near, campos(3) -> padded to 32
+SH_COEFFS = (1, 4, 9, 16)  # per channel, SH degrees 0-3: the kernel's instantiations
 
 launch_count = _lib.LaunchCount()
 
@@ -36,6 +39,12 @@ def cam_vector(cam, near: float = 0.01) -> np.ndarray:
     """The kernel's camera argument: float32 (32,), laid out as the JAX
     wrapper lays it out (viewmat row-major, fx, fy, cx, cy, near, campos)."""
     vm = np.asarray(torch.as_tensor(cam.viewmat).detach().cpu(), np.float32).reshape(4, 4)
+    # The SH color's camera position, -R^T t, in float32 on the host. The
+    # plain version forms it on the device (a 3x3 product whose summation
+    # order is the BLAS's); the two differ by at most an ulp of each
+    # coordinate, which moves the normalized directions and the colors by
+    # ~1e-7, far inside the kernel's 2e-5 tolerance, and keeps the camera a
+    # by-value launch argument with no device read.
     campos = -vm[:3, :3].T @ vm[:3, 3]
     vec = np.zeros((CAM_SLOTS,), np.float32)
     vec[:16] = vm.reshape(-1)
@@ -71,7 +80,7 @@ def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
             )
         _lib.check("gsproject_fwd", err)
         if r:
-            r.report(*_cost.gsproject_cost(n), out)
+            r.report(*_cost.gsproject_cost(n, g.sh.shape[1]), out)
     launch_count.n += 1
     return out
 
@@ -112,10 +121,10 @@ def project_packed(g, cam, *, near: float = 0.01, blur: float = 0.3, max_radius:
     """(N, 11) packed splats: the plain version on CPU, the kernel on CUDA."""
     if g.means.device.type != "cuda":
         return Project.apply(*g, cam, near, blur, max_radius)
-    if g.sh.shape[1] != 1:
+    if g.sh.shape[1] not in SH_COEFFS:
         raise NotImplementedError(
-            "the CUDA projection kernel covers SH degree 0 only "
-            f"(got {g.sh.shape[1]} SH coefficients per channel)"
+            f"the CUDA projection kernel covers SH degrees 0-3; this model has SH degree {g.sh_degree} "
+            f"({g.sh.shape[1]} coefficients per channel)"
         )
     if max_radius != 1e4:
         raise NotImplementedError("the CUDA projection kernel clamps the radius at 1e4")

@@ -7,8 +7,9 @@ opacity and the color. Written elementwise (no 3x3 matrix products), one
 PyTorch op per kernel operation, so that on the card the kernel (built
 without FMA contraction) and this version round alike and the radius'
 ``ceil`` flips on no Gaussian. It agrees with the JAX package's matrix-form
-projection within float32 rounding, and covers SH degrees 0..3 (the kernel
-covers degree 0).
+projection within float32 rounding, and covers SH degrees 0..3, as the
+kernel does: above degree 0 it evaluates ``eval_sh``, whose order of
+products and sums the kernel follows term by term.
 """
 from __future__ import annotations
 

@@ -114,10 +114,31 @@ def test_gsproject_kernel_matches_plain(cuda_device, n):
     _assert_packed_close(got, project_ref(G.from_numpy(_scene(n, seed=n, spread=1.5), "cpu"), cam))
 
 
+@pytest.mark.parametrize("degree", [1, 2, 3])
+@pytest.mark.parametrize("n", [1000, 100_003])
+def test_gsproject_kernel_matches_plain_at_higher_sh(cuda_device, degree, n):
+    """SH degrees 1-3: every field of the kernel's rows against the plain
+    version on the card, and the view-dependent colors against the plain
+    version on the CPU too (the radius' ceil may flip across devices, whose
+    exp and sqrt round differently); two launches bitwise equal."""
+    g = _scene(n, seed=n + degree, spread=1.5)
+    g = g._replace(sh=np.random.default_rng(degree).normal(0, 0.5, (n, (degree + 1) ** 2, 3)).astype(np.float32))
+    gd = G.from_numpy(g, cuda_device)
+    cam = _cam(64, 64, dist=2.0)
+    before = gp_ops.launch_count.n
+    got = P.project(gd, cam)
+    again = P.project(gd, cam)
+    torch.cuda.synchronize()
+    assert gp_ops.launch_count.n == before + 2
+    assert torch.equal(got, again)
+    _assert_packed_close(got, project_ref(gd, cam))
+    _assert_packed_close(got[:, P.CR:P.CB_ + 1], project_ref(G.from_numpy(g, "cpu"), cam)[:, P.CR:P.CB_ + 1])
+
+
 def test_gsproject_kernel_refuses_higher_sh(cuda_device):
     g = _scene(64, seed=3)
-    g = g._replace(sh=np.zeros((64, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="SH degree 0"):
+    g = g._replace(sh=np.zeros((64, 25, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="SH degree 4"):
         P.project(G.from_numpy(g, cuda_device), _cam(32, 32))
 
 
@@ -1001,6 +1022,30 @@ def test_op_cost_of_a_train_step_is_the_same_on_card_and_cpu(cuda_device):
     card, cpu = counts
     assert card["by_op"]["tile_raster_bwd"]["count"] == 2 and card["by_op"]["convolution_backward"]["count"] == 1
     assert card["transfer_bytes"] > 0 and cpu["transfer_bytes"] == 0
+    assert not _count_diff(card, cpu), _count_diff(card, cpu)[:10]
+
+
+def test_op_cost_of_an_sh_train_step_is_the_same_on_card_and_cpu(cuda_device):
+    """The same small train step at SH degree 3 counted on both devices: the
+    projection's region reports the SH bands' work on both, every op equal."""
+    from repro_torch.launch.op_cost import OpCost
+
+    host = _scene(3000, seed=5, scale=0.03)
+    host = host._replace(sh=np.concatenate(
+        [host.sh, np.random.default_rng(5).normal(0, 0.1, (3000, 15, 3)).astype(np.float32)], axis=1))
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3), sh_degree=3)
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = np.random.default_rng(5).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    counts = []
+    for dev in (cuda_device, torch.device("cpu")):
+        state, gt_d = init_state(G.from_numpy(host, dev)), torch.tensor(gt, device=dev)
+        with OpCost() as c:
+            _, m = make_train_step(cfg)(state, cams, gt_d)
+            float(m["loss"])
+        counts.append(c.result())
+    card, cpu = counts
+    assert card["by_op"]["gsproject"]["count"] == 2
+    assert card["by_op"]["gsproject"]["bytes"] == 2 * 3000 * 280
     assert not _count_diff(card, cpu), _count_diff(card, cpu)[:10]
 
 

@@ -17,6 +17,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.launch import hlo_stats
@@ -252,3 +253,22 @@ def test_train_step_counts_every_kernel_and_the_plain_backward():
     assert r["flops"] > 0 and r["bytes"] > 0 and r["peak_live_bytes"] > 0
     assert r["coll_total_moved_bytes"] == 0
     assert np.isfinite(float(m["loss"]))
+
+
+def test_gsproject_cost_counts_the_sh_bands():
+    """The projection's formula per SH degree: 12 more bytes a coefficient,
+    and each band's operations (gsproject.cu eval_sh_color) once the model
+    has it; the CPU's region reports the same for a model at each degree."""
+    want = {1: (130, 100), 4: (165, 136), 9: (210, 196), 16: (280, 280)}
+    for c, (ops, nbytes) in want.items():
+        assert kcost.gsproject_cost(1, c) == (ops, nbytes)
+        assert kcost.gsproject_cost(4_000_000, c) == (4_000_000 * ops, 4_000_000 * nbytes)
+    assert [nbytes * 4_000_000 / 3.35e12 * 1e3 for _, nbytes in list(want.values())[1:]] == pytest.approx(
+        [0.162, 0.234, 0.334], abs=1e-3)  # the byte bounds at 4M on an H100
+    g, cam = to_port(make_scene(300, 0), make_cam(32, 32))
+    for c, (ops, nbytes) in want.items():
+        sh = torch.tensor(np.random.default_rng(c).normal(0, 0.3, (g.n, c, 3)), dtype=torch.float32)
+        with OpCost() as counter:
+            project_packed(g._replace(sh=sh), cam)
+        assert counter.result()["by_op"] == {"gsproject": {"count": 1, "flops": float(g.n * ops),
+                                                           "bytes": float(g.n * nbytes)}}
