@@ -10,6 +10,8 @@ the JAX package's ``shard_map`` step, with one process per rank and
 ``torch.distributed`` collectives (``core/sharding.py``). With no mesh the
 collectives are identities and there are no strips: the one-device step.
 The paper's replicated baseline is the same code on a mesh with model=1.
+Under a traced ``GSTrainer.fit`` each stage records a span, and under
+``torch.profiler`` a ``gs.<stage>`` range (``obs/steptrace.py``).
 
 On a CUDA device three hand-written kernels carry it: the projection (its
 backward is the plain version's VJP, as in the JAX package), the rasterizer
@@ -36,6 +38,7 @@ from repro_torch.core import projection as P
 from repro_torch.core import render as R
 from repro_torch.core.config import GSConfig
 from repro_torch.core.sharding import Mesh, all_gather, distributed_gs_loss, gather_rows, reduce_scatter_rows
+from repro_torch.obs import steptrace
 from repro_torch.optim.adam import AdamState, adam_init, adam_update
 from repro_torch.optim.schedules import expon_lr, grendel_lr_scale
 from repro_torch.utils.tree import pack_pytree
@@ -271,8 +274,6 @@ def make_train_step(cfg: GSConfig, mesh: Mesh | None = None):
     bg = _OnDevice(cfg.bg)
     scale = grendel_lr_scale(cfg.batch_size) if cfg.grendel_sqrt_lr_scaling else 1.0
     if mesh is None:
-        def gather(x):
-            return x
         reduce_axes = ()
     else:
         def gather(x):
@@ -282,52 +283,64 @@ def make_train_step(cfg: GSConfig, mesh: Mesh | None = None):
     # strip j renders its rows with the splats moved up by its first row
     my_shift = _OnDevice([float(j_model * strip_h) if k == P.MY else 0.0 for k in range(P.PACKED_DIM)])
 
-    def loss_fn(p: G.GaussianModel, probe: torch.Tensor, cams: P.Camera, gt: torch.Tensor):
+    def loss_fn(p: G.GaussianModel, probe: torch.Tensor, cams: P.Camera, gt: torch.Tensor, tc):
         n_local = p.n
         if params3d:
             # the 3D state crosses the model axis once per step (14 + 3K
             # floats per Gaussian); every rank projects all N per view
-            flat3d = torch.cat([p.means, p.log_scales, p.quats, p.opacity_logit[:, None],
-                                p.sh.reshape(n_local, -1)], dim=1)
-            flat_all = gather(flat3d)
-            p_full = G.GaussianModel(
-                means=flat_all[:, 0:3].contiguous(),
-                log_scales=flat_all[:, 3:6].contiguous(),
-                quats=flat_all[:, 6:10].contiguous(),
-                opacity_logit=flat_all[:, 10].contiguous(),
-                sh=flat_all[:, 11:].reshape(flat_all.shape[0], p.sh.shape[1], 3).contiguous(),
-            )
+            with steptrace.record(tc, "gather"):
+                flat3d = torch.cat([p.means, p.log_scales, p.quats, p.opacity_logit[:, None],
+                                    p.sh.reshape(n_local, -1)], dim=1)
+                flat_all = gather(flat3d)
+                p_full = G.GaussianModel(
+                    means=flat_all[:, 0:3].contiguous(),
+                    log_scales=flat_all[:, 3:6].contiguous(),
+                    quats=flat_all[:, 6:10].contiguous(),
+                    opacity_logit=flat_all[:, 10].contiguous(),
+                    sh=flat_all[:, 11:].reshape(flat_all.shape[0], p.sh.shape[1], 3).contiguous(),
+                )
         imgs, radii = [], []
         # one view at a time, each view's splats gathered alone: the step
         # never holds a (B, N, 11) copy of the batch's splats
         for i in range(gt.shape[0]):
+            if tc:
+                tc.view = i  # the Functions of this view pin it for their backward
             if params3d:
                 # the zero probe on the projected means: its gradient is
                 # the view-space mean2d gradient that densification reads
-                gathered = P.project(p_full, _view(cams, i)) + F.pad(probe[i], (0, P.PACKED_DIM - 2))
-                radii.append(gathered[j_model * n_local:(j_model + 1) * n_local, P.RAD].detach())
+                with steptrace.record(tc, "project", i):
+                    gathered = P.project(p_full, _view(cams, i)) + F.pad(probe[i], (0, P.PACKED_DIM - 2))
+                    radii.append(gathered[j_model * n_local:(j_model + 1) * n_local, P.RAD].detach())
+                    if strip:
+                        gathered = gathered - my_shift.on(gathered.device)
             else:
                 # Grendel: project the own shard, gather the 11-float splats
-                packed = P.project(p, _view(cams, i)) + F.pad(probe[i], (0, P.PACKED_DIM - 2))
-                radii.append(packed[:, P.RAD].detach())
-                gathered = gather(packed)                                                # (N, 11)
-            if strip:
-                gathered = gathered - my_shift.on(gathered.device)
-            pk_sorted, _ = P.sort_by_depth(gathered)
-            img, _ = R.render_packed(
-                pk_sorted,
-                img_h=strip_h,
-                img_w=cfg.img_w,
-                tile_h=cfg.tile_h,
-                tile_w=cfg.tile_w,
-                k_per_tile=cfg.k_per_tile,
-                bg=bg.on(pk_sorted.device),
-                binning=cfg.binning,
-            )
+                with steptrace.record(tc, "project", i):
+                    packed = P.project(p, _view(cams, i)) + F.pad(probe[i], (0, P.PACKED_DIM - 2))
+                    radii.append(packed[:, P.RAD].detach())
+                if mesh is None:
+                    gathered = packed
+                else:
+                    with steptrace.record(tc, "gather", i):
+                        gathered = gather(packed)                                        # (N, 11)
+                        if strip:
+                            gathered = gathered - my_shift.on(gathered.device)
+            with steptrace.record(tc, "sort", i):
+                pk_sorted, _ = P.sort_by_depth(gathered)
+            with steptrace.record(tc, "bin", i):
+                idx, valid = R.bin_tiles(pk_sorted, img_h=strip_h, img_w=cfg.img_w, tile_h=cfg.tile_h,
+                                         tile_w=cfg.tile_w, k_per_tile=cfg.k_per_tile, binning=cfg.binning)
+            with steptrace.record(tc, "raster", i):
+                img, _ = R.raster_ops.rasterize_tiles(pk_sorted, idx, valid, img_h=strip_h, img_w=cfg.img_w,
+                                                      tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                                                      bg=bg.on(pk_sorted.device))
+            del idx, valid  # freed here, as inside render_packed, so the next view's peak is the same
             imgs.append(img)
-        loss = distributed_gs_loss(torch.stack(imgs), gt, lam=cfg.lambda_dssim, strip_axis=strip_axis,
-                                   reduce_axes=reduce_axes)
-        return loss, torch.stack(radii)
+        with steptrace.record(tc, "loss"):
+            loss = distributed_gs_loss(torch.stack(imgs), gt, lam=cfg.lambda_dssim, strip_axis=strip_axis,
+                                       reduce_axes=reduce_axes)
+            radii = torch.stack(radii)
+        return loss, radii
 
     def step(state: GSTrainState, cams: P.Camera, gt: torch.Tensor):
         if mesh is not None:
@@ -340,47 +353,50 @@ def make_train_step(cfg: GSConfig, mesh: Mesh | None = None):
         leaves = [x.detach().requires_grad_() for x in params]
         probe = torch.zeros((gt.shape[0], params.n * (m if params3d else 1), 2), dtype=torch.float32,
                             device=params.means.device, requires_grad=True)
+        tc = steptrace.current()  # set by a traced GSTrainer.fit on this thread
         with _NoTF32Conv():
-            loss, radii = loss_fn(G.GaussianModel(*leaves), probe, cams, gt)
-            *grads, probe_grad = torch.autograd.grad(loss, [*leaves, probe])
-
-        grads = G.GaussianModel(*grads)
-        if params3d and mesh is not None:
-            # every strip's share of the view-space gradient of the own shard
-            probe_grad = reduce_scatter_rows(probe_grad, mesh.model, dim=1)
-        # view-space positional gradient stats for densification
-        g2d = torch.sqrt(torch.sum(probe_grad * probe_grad, dim=-1) + 1e-20).sum(dim=0)
-        vis = (radii > 0.0).to(torch.float32).sum(dim=0)
-        maxr = radii.amax(dim=0)
+            loss, radii = loss_fn(G.GaussianModel(*leaves), probe, cams, gt, tc)
+            with steptrace.record(tc, "backward"):
+                *grads, probe_grad = torch.autograd.grad(loss, [*leaves, probe])
+                grads = G.GaussianModel(*grads)
+                if params3d and mesh is not None:
+                    # every strip's share of the view-space gradient of the own shard
+                    probe_grad = reduce_scatter_rows(probe_grad, mesh.model, dim=1)
+                # view-space positional gradient stats for densification
+                g2d = torch.sqrt(torch.sum(probe_grad * probe_grad, dim=-1) + 1e-20).sum(dim=0)
+                vis = (radii > 0.0).to(torch.float32).sum(dim=0)
+                maxr = radii.amax(dim=0)
         if mesh is not None:
-            # the paper's fused all-reduce: ONE collective over packed grads
-            flat, unpack = pack_pytree(grads)
-            dist.all_reduce(flat, group=mesh.data.group)
-            grads = unpack(flat)
-            stats = torch.stack([g2d, vis])
-            dist.all_reduce(stats, group=mesh.data.group)
-            g2d, vis = stats[0], stats[1]
-            dist.all_reduce(maxr, op=dist.ReduceOp.MAX, group=mesh.data.group)
+            with steptrace.record(tc, "reduce"):
+                # the paper's fused all-reduce: ONE collective over packed grads
+                flat, unpack = pack_pytree(grads)
+                dist.all_reduce(flat, group=mesh.data.group)
+                grads = unpack(flat)
+                stats = torch.stack([g2d, vis])
+                dist.all_reduce(stats, group=mesh.data.group)
+                g2d, vis = stats[0], stats[1]
+                dist.all_reduce(maxr, op=dist.ReduceOp.MAX, group=mesh.data.group)
 
-        # Adam with per-field LRs (Grendel sqrt-batch scaling)
-        lr_means = expon_lr(state.step, lr_init=cfg.lr_means_init, lr_final=cfg.lr_means_final,
-                            max_steps=cfg.max_steps)
-        lrs = G.GaussianModel(
-            means=lr_means * scale,
-            log_scales=cfg.lr_scales * scale,
-            quats=cfg.lr_quats * scale,
-            opacity_logit=cfg.lr_opacity * scale,
-            sh=cfg.lr_sh * scale,
-        )
-        new_params, new_adam = adam_update(grads, state.adam, params, lrs)
-        new_state = GSTrainState(
-            params=new_params,
-            adam=new_adam,
-            step=state.step + 1,
-            grad2d_accum=state.grad2d_accum + g2d,
-            vis_count=state.vis_count + vis,
-            max_radii=torch.maximum(state.max_radii, maxr),
-        )
+        with steptrace.record(tc, "adam"):
+            # Adam with per-field LRs (Grendel sqrt-batch scaling)
+            lr_means = expon_lr(state.step, lr_init=cfg.lr_means_init, lr_final=cfg.lr_means_final,
+                                max_steps=cfg.max_steps)
+            lrs = G.GaussianModel(
+                means=lr_means * scale,
+                log_scales=cfg.lr_scales * scale,
+                quats=cfg.lr_quats * scale,
+                opacity_logit=cfg.lr_opacity * scale,
+                sh=cfg.lr_sh * scale,
+            )
+            new_params, new_adam = adam_update(grads, state.adam, params, lrs)
+            new_state = GSTrainState(
+                params=new_params,
+                adam=new_adam,
+                step=state.step + 1,
+                grad2d_accum=state.grad2d_accum + g2d,
+                vis_count=state.vis_count + vis,
+                max_radii=torch.maximum(state.max_radii, maxr),
+            )
         return new_state, {"loss": loss.detach()}
 
     return step

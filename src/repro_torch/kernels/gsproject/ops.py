@@ -28,6 +28,7 @@ from repro_torch.core import gaussians as G
 from repro_torch.kernels import _lib
 from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.gsproject.ref import project_ref
+from repro_torch.obs import steptrace
 
 CAM_SLOTS = 32  # viewmat(16), fx, fy, cx, cy, near, campos(3) -> padded to 32
 SH_COEFFS = (1, 4, 9, 16)  # per channel, SH degrees 0-3: the kernel's instantiations
@@ -92,6 +93,7 @@ class Project(torch.autograd.Function):
     @staticmethod
     def forward(ctx, means, log_scales, quats, opacity_logit, sh, cam, near: float, blur: float, max_radius: float):
         ctx.near, ctx.blur, ctx.max_radius = near, blur, max_radius
+        ctx.trace = steptrace.pin()  # the backward's span joins this step's tree
         if any(ctx.needs_input_grad[:5]):
             # the backward's plain version reads the camera on the device; an
             # asynchronous copy now keeps it from synchronizing the stream then
@@ -109,11 +111,13 @@ class Project(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gpacked):
-        leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-        with torch.enable_grad():
-            packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
-                                 max_radius=ctx.max_radius)
-            grads = torch.autograd.grad(packed, leaves, gpacked)
+        tc, view = ctx.trace
+        with steptrace.record(tc, "vjp", view):
+            leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            with torch.enable_grad():
+                packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
+                                     max_radius=ctx.max_radius)
+                grads = torch.autograd.grad(packed, leaves, gpacked)
         return (*grads, None, None, None, None)
 
 

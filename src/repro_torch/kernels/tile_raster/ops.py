@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels import cost as _cost
 from repro_torch.kernels.tile_raster import ref as _ref
+from repro_torch.obs import steptrace
 
 MAX_PIXELS = 1024  # one CTA per tile: two pixels a thread forward, one backward
 
@@ -161,6 +162,7 @@ class Composite(torch.autograd.Function):
     def forward(ctx, splats_t, valid, tiles_x: int, tile_h: int, tile_w: int, row_offset: int):
         kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
         ctx.kw = kw
+        ctx.trace = steptrace.pin()  # the backward's span joins this step's tree
         if splats_t.device.type != "cuda":
             ctx.save_for_backward(splats_t, valid)
             with _cost.region("tile_raster_fwd") as r:
@@ -177,15 +179,17 @@ class Composite(torch.autograd.Function):
     def backward(ctx, gout, gtfin):
         # an output that got no gradient arrives as zeros (autograd
         # materializes them by default)
-        splats_t, valid, *res = ctx.saved_tensors
-        gout, gtfin = gout.contiguous(), gtfin.contiguous()
-        if splats_t.device.type == "cuda":
-            d = composite_bwd(splats_t, valid, gout, gtfin, *res, **ctx.kw)
-        else:
-            with _cost.region("tile_raster_bwd") as r:
-                d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
-                if r:
-                    r.report(*_bwd_cost(splats_t, valid, ctx.kw), d)
+        tc, view = ctx.trace
+        with steptrace.record(tc, "raster_bwd", view):
+            splats_t, valid, *res = ctx.saved_tensors
+            gout, gtfin = gout.contiguous(), gtfin.contiguous()
+            if splats_t.device.type == "cuda":
+                d = composite_bwd(splats_t, valid, gout, gtfin, *res, **ctx.kw)
+            else:
+                with _cost.region("tile_raster_bwd") as r:
+                    d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
+                    if r:
+                        r.report(*_bwd_cost(splats_t, valid, ctx.kw), d)
         return d, None, None, None, None, None
 
 

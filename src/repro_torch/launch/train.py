@@ -46,7 +46,7 @@ from repro_torch.core.train import (
 )
 from repro_torch.data.views import ViewDataset
 from repro_torch.launch.mesh import init_ranks, make_gs_mesh
-from repro_torch.obs import Obs, devmem, export_trace, new_request_id
+from repro_torch.obs import Obs, devmem, export_trace, new_request_id, steptrace
 from repro_torch.obs.clock import now, since
 from repro_torch.volume import datasets as VD
 from repro_torch.volume.isosurface import extract_isosurface_points
@@ -99,7 +99,8 @@ class GSTrainer:
         """Per-step telemetry rides the registry (``train.loss`` gauge,
         ``train.step_ms`` histogram, ``train.gather_bytes``); spans cover
         batch assembly -> dispatch -> device compute (bounded by a device
-        synchronize, traced runs only) -> densify rounds."""
+        synchronize, traced runs only) -> densify rounds, and inside each
+        ``dispatch`` the step's own stages (``obs/steptrace.py``)."""
         m = self.obs.metrics
         loss_gauge = m.gauge("train.loss")
         step_ms = m.histogram("train.step_ms")
@@ -117,7 +118,8 @@ class GSTrainer:
             t_batch = now()
             if rec:
                 rec.record(rid, "batch", t_iter, t_batch, step=i)
-            self.state, metrics = self.step_fn(self.state, cams, gt)
+            with steptrace.in_step(rec, rid, i):  # the step's stage spans (core/train.py)
+                self.state, metrics = self.step_fn(self.state, cams, gt)
             if rec:
                 t_disp = now()
                 rec.record(rid, "dispatch", t_batch, t_disp, step=i)

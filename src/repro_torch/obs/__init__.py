@@ -33,15 +33,17 @@ from repro_torch.obs.metrics import (
 )
 from repro_torch.obs.slo import SLOTracker, parse_slo_spec
 from repro_torch.obs.trace import (
+    LOOP_STAGES,
     NULL_RECORDER,
     STAGES,
+    STEP_STAGES,
     TRAIN_STAGES,
     NullRecorder,
     Span,
     TraceRecorder,
     new_request_id,
 )
-from repro_torch.obs import devmem
+from repro_torch.obs import devmem, steptrace
 
 __all__ = [
     "Obs",
@@ -59,7 +61,10 @@ __all__ = [
     "Span",
     "STAGES",
     "TRAIN_STAGES",
+    "LOOP_STAGES",
+    "STEP_STAGES",
     "devmem",
+    "steptrace",
     "new_request_id",
     "spans_to_jsonl",
     "spans_to_chrome",

@@ -34,7 +34,7 @@ from __future__ import annotations
 import json
 from typing import Iterable, Sequence
 
-from repro_torch.obs.trace import STAGES, TRAIN_STAGES, Span
+from repro_torch.obs.trace import LOOP_STAGES, STAGES, STEP_STAGES, Span
 
 __all__ = [
     "spans_to_jsonl",
@@ -105,9 +105,12 @@ def spans_to_chrome(spans: Sequence[Span], meta: dict | None = None) -> dict:
     base = min((s.t0 for s in spans), default=0.0)
     # serving stages first, then training stages: a trace that carries both
     # (insitu run(server=...)) shows training and serving lanes on one clock
-    known = STAGES + TRAIN_STAGES
+    known = STAGES + LOOP_STAGES
     stage_base = {name: (i + 1) * LANE_STRIDE for i, name in enumerate(known)}
     overflow_base = (len(known) + 1) * LANE_STRIDE  # unknown stage names
+    # the train step's stages after the overflow block, so that every lane
+    # the JAX package lays keeps its tid
+    stage_base.update({name: overflow_base + (i + 1) * LANE_STRIDE for i, name in enumerate(STEP_STAGES)})
     # per-stage sub-lane occupancy: lane i is free for a span iff the last
     # span placed there ended at or before this span starts
     lane_busy_until: dict[str, list] = {}

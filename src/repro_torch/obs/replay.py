@@ -36,7 +36,7 @@ import hashlib
 import json
 
 from repro_torch.obs.export import validate_trace_jsonl
-from repro_torch.obs.trace import TRAIN_STAGES
+from repro_torch.obs.trace import LOOP_STAGES
 
 __all__ = [
     "load_trace",
@@ -364,12 +364,14 @@ def train_stage_breakdown(records: list[dict]) -> dict:
     A training trace uses one rid per stream timestep (or fit call), so the
     serving ``fit()`` — which wants admit/submit trees — has nothing to say
     about it; this is the training-side analog: ``{stage: StageDist}`` over
-    the :data:`~repro_torch.obs.trace.TRAIN_STAGES` names found in ``records``
+    the :data:`~repro_torch.obs.trace.LOOP_STAGES` names found in ``records``
     (seconds, sorted), plus a ``"timesteps"`` entry counting distinct rids
-    that carried training spans. Stage names outside the training vocabulary
-    are ignored, so a mixed training+serving trace (one shared Obs) feeds
-    this AND ``fit()`` from the same file."""
-    train = frozenset(TRAIN_STAGES)
+    that carried training spans. Stage names outside the training loop's
+    vocabulary are ignored, so a mixed training+serving trace (one shared
+    Obs) feeds this AND ``fit()`` from the same file; the train step's own
+    stages (``STEP_STAGES``) are left out too, so the result is the JAX
+    package's on the same file."""
+    train = frozenset(LOOP_STAGES)
     samples: dict[str, list] = {}
     rids = set()
     for r in records:

@@ -38,6 +38,8 @@ __all__ = [
     "new_request_id",
     "STAGES",
     "TRAIN_STAGES",
+    "LOOP_STAGES",
+    "STEP_STAGES",
 ]
 
 # Stage vocabulary, in pipeline order. Exporters use this order to lay out
@@ -70,7 +72,26 @@ TRAIN_STAGES = (
     "ckpt",       # checkpoint / temporal-store handoff
     "serve",      # live RenderServer add_timestep handoff
     "fit",        # the whole optimization loop of one timestep (parent span)
+    # the train step's own stages (the port's; obs/steptrace.py), children
+    # of their step's "dispatch" span; per view unless marked per step
+    "project",    # projection of the own shard (or all N, params3d)
+    "gather",     # the splats' all-gather over the model axis (mesh only)
+    "sort",       # depth sort
+    "bin",        # per-tile front-most-K lists
+    "raster",     # slab gather + compositor forward
+    "loss",       # L1 + D-SSIM over the mesh (per step)
+    "backward",   # torch.autograd.grad + densify statistics (per step)
+    "vjp",        # the projection's plain-version VJP (autograd thread)
+    "raster_bwd", # the compositor's backward (autograd thread)
+    "reduce",     # the data-axis all-reduces (mesh only, per step)
+    "adam",       # Adam + the statistics' accumulation (per step)
 )
+
+# The loop's stages, which the JAX package's vocabulary has too, and the
+# step's own: exporters and the replay keep the loop's layout and results
+# equal to the JAX package's, and give the step's stages lanes of their own.
+STEP_STAGES = TRAIN_STAGES[TRAIN_STAGES.index("fit") + 1:]
+LOOP_STAGES = TRAIN_STAGES[:len(TRAIN_STAGES) - len(STEP_STAGES)]
 
 _request_ids = itertools.count(1)
 

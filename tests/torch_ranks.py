@@ -1,6 +1,7 @@
 """Spawned gloo ranks for the PyTorch port's multi-rank parity tests
 (``tests/test_torch_sharding.py``, ``tests/test_torch_train_ranks.py``,
-``tests/test_torch_serve_ranks.py``, ``tests/test_torch_insitu_ranks.py``).
+``tests/test_torch_serve_ranks.py``, ``tests/test_torch_insitu_ranks.py``,
+``tests/test_torch_train_trace.py``).
 
 ``spawn(tasks, world, inputs, tmp)`` starts ``world`` processes of this file,
 one per rank. They meet through a ``file://`` store under ``tmp`` (no fixed
@@ -129,6 +130,37 @@ def train(mesh, task, inp) -> dict:
         out[f"{key}losses"] = np.asarray(losses)
         out.update(flat_state(st, f"{key}final."))
     return out
+
+
+def traced_fit(mesh, task, inp) -> dict:
+    """``GSTrainer.fit`` with tracing on, from the full state on the batch
+    ``inp`` holds, ``task["steps"]`` times; its spans as arrays (name, rid,
+    step, view (-1: none), t0, t1)."""
+    import torch
+
+    from repro_torch.core.config import GSConfig
+    from repro_torch.core.projection import Camera
+    from repro_torch.launch.train import GSTrainer
+    from repro_torch.obs import Obs
+
+    cfg = GSConfig(**task["cfg"])
+    cams = Camera(*[torch.tensor(inp[f"{task['inputs']}cams.{f}"]) for f in Camera._fields])
+    gt = torch.tensor(inp[f"{task['inputs']}gt"], device=mesh.device)
+    full = _state(inp, f"{task['inputs']}state.")
+    tr = GSTrainer(cfg, params=[torch.tensor(x) for x in full.params], mesh=mesh, obs=Obs(trace=True),
+                   verbose=False)
+
+    class Feed:
+        def batches(self, batch_size, *, steps):
+            for _ in range(steps):
+                yield cams, gt
+
+    tr.fit(Feed(), steps=task["steps"], densify=False)
+    spans = tr.obs.trace.drain()
+    return {"names": np.asarray([s.name for s in spans]), "rid": np.asarray([s.rid for s in spans]),
+            "step": np.asarray([s.meta.get("step", -1) for s in spans]),
+            "view": np.asarray([s.meta.get("view", -1) for s in spans]),
+            "t0": np.asarray([s.t0 for s in spans]), "t1": np.asarray([s.t1 for s in spans])}
 
 
 def loss(mesh, task, inp) -> dict:
