@@ -42,7 +42,10 @@ Phases, in order (any failure exits non-zero):
      backward fed the forward's residuals, with d(out) from a real loss and
      a random one, two launches bitwise equal;
   3. each kernel and its plain version timed with CUDA events (the
-     projection at each SH degree beside its bound); for the rasterizer,
+     projection at each SH degree beside its bound; the projection's
+     backward at SH degrees 0 and 3 on the same 4M scenes, first held to the
+     plain VJP at atol 2e-5*max|g| / rtol 2e-4 with two launches bitwise
+     equal, then timed beside its byte bound and the plain VJP's wall time); for the rasterizer,
      per-tile load (valid entries and alpha evaluations: max, p99, p50, mean) and each kernel's time on the densest tile alone;
   4. serving: a few orbit clients through the port's RenderServer, with
      the launch counters zeroed just before and read just after, then a
@@ -1834,6 +1837,61 @@ def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, king
     return {k: launches[k] + more[k] for k in launches}
 
 
+# ---------------------------------------------------------------- phase 3: the projection's backward
+def gsproject_bwd_phase(card: str, models: dict, cam, seed: int) -> dict:
+    """The projection's backward kernel at the main path's size, for each SH
+    degree of ``models`` (degree -> device model), their log-scales and
+    quaternions drawn anew from the seed (an isotropic Gaussian's rotation
+    gradient is 0, and both sides would compare rounding noise): its five gradients
+    against the plain VJP (``torch.autograd.grad`` of ``project_ref``) for a
+    random (N, 11) splat gradient from the seed, at the JAX package's
+    gradient tolerance, two launches bitwise equal; then its device time
+    (CUDA events) beside its byte bound and the plain VJP's wall time per
+    call. Returns degree -> the kernel row's numbers."""
+    from repro_torch.core import gaussians as G
+    from repro_torch.core import projection as P
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.gsproject import ops as gp_ops
+    from repro_torch.kernels.gsproject.ref import project_ref
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
+
+    cam_vec = gp_ops.cam_vector(cam)
+    rows = {}
+    for d, g in models.items():
+        dev, n = g.means.device, g.n
+        cam_dev = P.Camera(*[torch.as_tensor(x).to(dev) for x in cam])  # no host copy per call
+        gen = torch.Generator(device=dev).manual_seed(seed + d)
+        g = g._replace(log_scales=g.log_scales + 0.3 * torch.randn((n, 3), device=dev, generator=gen),
+                       quats=torch.randn((n, 4), device=dev, generator=gen))
+        gpacked = torch.randn((n, 11), device=dev, generator=gen)
+        leaves = [x.detach().requires_grad_() for x in g]
+
+        def plain():
+            return torch.autograd.grad(project_ref(G.GaussianModel(*leaves), cam_dev), leaves, gpacked)
+
+        got = gp_ops.launch_bwd(g, cam_vec, gpacked)
+        same = all(torch.equal(a, b) for a, b in zip(gp_ops.launch_bwd(g, cam_vec, gpacked), got))
+        reports = [grad_report(a, b) for a, b in zip(got, plain())]
+        err, bad = max(e for e, _ in reports), sum(b for _, b in reports)
+        log(f"compare gsproject_bwd SH degree {d} N={n}: max_abs_err {err:.3e}, entries outside atol "
+            f"2e-5*max|g|/rtol 2e-4: {bad} (by gradient: "
+            f"{', '.join(f'{name} {e:.3e} / {b}' for name, (e, b) in zip(G.GaussianModel._fields, reports))}); "
+            f"two launches bitwise equal: {same}")
+        if bad or not same or not all(torch.isfinite(x).all() for x in got):
+            raise SystemExit(f"gsproject_bwd at SH degree {d} disagrees with the plain VJP or with itself")
+        del got
+        ms = cuda_ms(lambda: gp_ops.launch_bwd(g, cam_vec, gpacked), 20, f"gsproject_bwd SH degree {d} kernel")
+        plain_ms = wall_ms(plain, 3)
+        ops, nbytes = kcost.gsproject_bwd_cost(n, g.sh.shape[1])
+        bound, bound_by = kcost.bound_ms(ops, nbytes, PEAK_FLOPS_FP32, HBM_BW)
+        rows[d] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        log(f"time gsproject_bwd SH degree {d} ({g.sh.shape[1]} coefficients) N={n} ({card}): kernel {ms:.4f} ms "
+            f"(host {host_us(lambda: gp_ops.launch_bwd(g, cam_vec, gpacked), 50):.1f} us per launch), plain VJP "
+            f"{plain_ms:.4f} ms wall, bound {bound:.4f} ms ({bound_by}; {nbytes} B, {ops} operations), kernel / "
+            f"bound {ms / bound:.3f}, no library call")
+    return rows
+
+
 # ---------------------------------------------------------------- phase 5f: SH degrees 1-3
 SH_TRAIN_STEPS = 5
 
@@ -2773,6 +2831,7 @@ def main(argv=None) -> int:
         log(f"time gsproject SH degree {d} ({g_sh.sh.shape[1]} coefficients) N={n} ({card}): kernel {sh_ms:.4f} ms, "
             f"plain {sh_plain_ms:.4f} ms, bound {sh_bound:.4f} ms ({sh_bound_by}; {sh_bytes} B, {sh_ops} operations), "
             f"kernel / bound {sh_ms / sh_bound:.3f}, no library call")
+    bwd_rows = gsproject_bwd_phase(card, {0: g_dev, 3: sh_models[3]}, cam, args.seed)
     del sh_models
 
     # each rasterizer kernel against its bound and its plain version, the
@@ -2921,11 +2980,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = fa_ops.launch_count.n = 0
+    gp_ops.bwd_launch_count.n = 0
     losses = trainer.fit(data, steps=args.train_steps, log_every=1)
     metrics = trainer.evaluate(data, range(args.eval_views))
     torch.cuda.synchronize()
     train_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n,
                       fa_ops.launch_count.n)
+    train_bwd_launches = gp_ops.bwd_launch_count.n
     train_peak = torch.cuda.max_memory_allocated(dev)
     step_ms = trainer.step_ms_log
     log(f"train {name} ({card}): {trainer.state.params.n} Gaussians after {args.train_steps} steps at batch "
@@ -2940,11 +3001,13 @@ def main(argv=None) -> int:
     want = (4 * args.train_steps + args.eval_views,) * 2 + (4 * args.train_steps, 0)
     log(f"launches on the training path: gsproject {train_launches[0]}, tile_raster_fwd {train_launches[1]}, "
         f"tile_raster_bwd {train_launches[2]}, flash_attention {train_launches[3]} (want {want}: 4 per step each, "
-        "plus one forward per eval view, and no attention)")
+        f"plus one forward per eval view, and no attention); gsproject_bwd {train_bwd_launches} (want "
+        f"{4 * args.train_steps}: 4 per step)")
     if not np.isfinite(losses).all() or len(losses) != args.train_steps:
         raise SystemExit(f"training losses not finite: {losses}")
-    if train_launches != want:
-        raise SystemExit(f"training path launches {train_launches}, want {want}")
+    if train_launches != want or train_bwd_launches != 4 * args.train_steps:
+        raise SystemExit(f"training path launches {train_launches}, gsproject_bwd {train_bwd_launches}, want {want}, "
+                         f"{4 * args.train_steps}")
     if len(trainer.densify_reports) != 1:
         raise SystemExit(f"want one densify round, got {trainer.densify_reports}")
 
@@ -2981,7 +3044,7 @@ def main(argv=None) -> int:
         lambda: torch.autograd.grad(distributed_gs_loss(imgs, gt_b), imgs), 5, "stage loss")
     stages["rasterizer backward and gather transposes"] = b * cuda_ms(
         lambda: torch.autograd.grad(img, pk_leaf, gimg, retain_graph=True), 5, "stage rasterizer backward")
-    stages["projection backward (plain VJP)"] = b * cuda_ms(
+    stages["projection backward"] = b * cuda_ms(
         lambda: torch.autograd.grad(packed, leaves, gpacked, retain_graph=True), 3, "stage projection backward")
     stages["Adam"] = cuda_ms(lambda: adam_update(step_grads, trainer.state.adam, params, lrs), 5, "stage Adam")
     whole = cuda_ms(lambda: trainer.step_fn(trainer.state, cams_b, gt_b), 3, "whole train step")
@@ -3109,6 +3172,9 @@ def main(argv=None) -> int:
          "launches_by_path": by_path(0, "gsproject"),
          "max_abs_err": gp_err, "ms": gp_ms, "plain_ms": gp_plain_ms,
          "bound_ms": gp_bound, "bound_by": gp_bound_by, "library_ms": None},
+        {"name": "gsproject_bwd", "route": "cuda", "source": "src/repro_torch/kernels/gsproject/gsproject.cu",
+         "replaces": None, "launches": train_bwd_launches, "launches_by_path": {"train": train_bwd_launches},
+         **bwd_rows[0], "sh3": bwd_rows[3], "library_ms": None},
         {"name": "tile_raster_fwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/tile_raster.cu",
          "replaces": "src/repro/kernels/tile_raster/tile_raster.py:102", "launches": train_launches[1],
          "launches_by_path": by_path(1, "tile_raster_fwd"),

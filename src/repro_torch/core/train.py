@@ -13,9 +13,8 @@ The paper's replicated baseline is the same code on a mesh with model=1.
 Under a traced ``GSTrainer.fit`` each stage records a span, and under
 ``torch.profiler`` a ``gs.<stage>`` range (``obs/steptrace.py``).
 
-On a CUDA device three hand-written kernels carry it: the projection (its
-backward is the plain version's VJP, as in the JAX package), the rasterizer
-forward and the rasterizer backward. On the CPU the plain PyTorch versions
+On a CUDA device four hand-written kernels carry it: the projection and its
+backward, the rasterizer forward and the rasterizer backward. On the CPU the plain PyTorch versions
 run, and the CPU tests hold them to the JAX package.
 
 The serving stack renders through the eval factories, on one device or

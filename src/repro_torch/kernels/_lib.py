@@ -29,6 +29,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES = (
     _KERNELS_DIR / "gsproject" / "gsproject.cu",
@@ -56,6 +58,10 @@ SIGNATURES = {
     # means (N,3), log_scales (N,3), quats (N,4), opacity_logit (N,), sh
     # (N,C,3), sh_stride, cam (host, 32 floats), out (N,11), n, blur, stream
     "gsproject_fwd": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _P),
+    # the forward's arguments to cam, then gpacked (N,11), and the gradients
+    # it writes: means (N,3), log_scales (N,3), quats (N,4), opacity_logit
+    # (N,), sh (N,C,3); n, blur, stream
+    "gsproject_bwd": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     # splats_t (T,11,K), valid (T,K), out (T,3,P), t_final (T,P), n_contrib
     # (T,P) int32, n_tiles, k, tiles_x, tile_h, tile_w, row_offset, stream
     "tile_raster_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -147,6 +153,14 @@ def check(name: str, err: int) -> None:
     and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def check_tensor(name: str, x: torch.Tensor, shape: tuple, dev: torch.device, dtype=torch.float32) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``dev``: what a launcher's raw pointer arguments assume."""
+    if x.dtype != dtype or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: want contiguous {dtype} {shape} on {dev}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 class LaunchCount:

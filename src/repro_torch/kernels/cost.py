@@ -39,6 +39,20 @@ GSPROJECT_OPS_PER_GAUSSIAN = 130  # mul/add/compare incl. 5 exp/rsqrt/sqrt, 2 di
 # the direction, 9 for the 5 basis factors, and 10 a channel; band 3: 28
 # for the 7 basis factors and 14 a channel
 GSPROJECT_SH_BAND_OPS = ((1, 14 + 21), (4, 15 + 30), (9, 28 + 42))
+# backward, per Gaussian (gsproject.cu gsproject_bwd_kernel): it reads the
+# forward's 14 inputs and the splat's 11 gradient floats and writes the 14
+# parameter gradients; the forward's geometry recomputed (~214), the
+# opacity, color clamp and screen position (~32), the conic and
+# determinant (22), J·W's and cov3d's gradients (96), back to the camera
+# frame and the means (41), to the scales and rotation (78), the
+# quaternion and its normalization (93), and the DC's 3 products
+GSPROJECT_BWD_BYTES_PER_GAUSSIAN = (14 + 11 + 14) * 4
+GSPROJECT_BWD_OPS_PER_GAUSSIAN = 579
+# the SH color's backward above degree 0, band by band: the forward's band
+# recomputed (35, 45, 70), the band's factors, their gradients s(k) and the
+# direction's, the direction's own backward (band 1 only) and 3 products a
+# coefficient for the SH gradient
+GSPROJECT_BWD_SH_BAND_OPS = ((1, 35 + 58), (4, 45 + 93), (9, 70 + 177))
 RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T update, 3 color FMAs
 # backward, per composited (pixel, splat): the alpha recomputed (15), T by
 # division, w, dw and the color grads (11), d(alpha) and B (5), d(power) and
@@ -85,6 +99,15 @@ def gsproject_cost(n: int, sh_coeffs: int = 1) -> tuple[int, int]:
     projection, the SH color's bands, and each extra coefficient's 12 bytes."""
     ops = GSPROJECT_OPS_PER_GAUSSIAN + sum(band for above, band in GSPROJECT_SH_BAND_OPS if sh_coeffs > above)
     return n * ops, n * (GSPROJECT_BYTES_PER_GAUSSIAN + 12 * (sh_coeffs - 1))
+
+
+def gsproject_bwd_cost(n: int, sh_coeffs: int = 1) -> tuple[int, int]:
+    """(operations, bytes) of the projection's backward for ``n`` Gaussians
+    with ``sh_coeffs`` SH coefficients per channel: each extra coefficient
+    reads 12 bytes and writes 12."""
+    ops = GSPROJECT_BWD_OPS_PER_GAUSSIAN + sum(
+        band for above, band in GSPROJECT_BWD_SH_BAND_OPS if sh_coeffs > above)
+    return n * ops, n * (GSPROJECT_BWD_BYTES_PER_GAUSSIAN + 24 * (sh_coeffs - 1))
 
 
 def raster_evals(valid: torch.Tensor, composited: torch.Tensor) -> int:

@@ -10,19 +10,22 @@ covers SH degrees 0-3 (1, 4, 9 or 16 coefficients per channel, the range of
 ``NotImplementedError`` naming its degree rather than falling back. On the
 CPU the plain version keeps ``eval_sh``'s behaviour, as the JAX oracle does.
 
-On both devices the projection is a ``torch.autograd.Function`` whose
-forward is the kernel (CUDA) or the plain version (CPU) and whose backward
-is the vector-Jacobian product of ``project_ref``, recomputed from the
-saved inputs, as the JAX package's wrapper does with its oracle. No
-autograd graph of the plain version is kept between forward and backward
-(at 4M Gaussians it would hold GBs per view), and a step runs the same ops
-on both devices. The forward reports its work to an active operation
-counter (``kernels/cost.py`` ``region``).
+On both devices the projection is a ``torch.autograd.Function``. On CUDA
+its backward is ``gsproject.cu``'s backward kernel, one launch a view that
+writes the five parameter gradients from the saved parameters, the
+forward's camera vector and the (N, 11) splat gradients. On the CPU it is
+the vector-Jacobian product of ``project_ref``, recomputed from the saved
+inputs, as the JAX package's wrapper does with its oracle; no autograd
+graph of the plain version is kept between forward and backward. Both
+directions report their work to an active operation counter
+(``kernels/cost.py`` ``region``) on both devices, so a step counts the same
+on either.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core import gaussians as G
 from repro_torch.kernels import _lib
@@ -33,7 +36,8 @@ from repro_torch.obs import steptrace
 CAM_SLOTS = 32  # viewmat(16), fx, fy, cx, cy, near, campos(3) -> padded to 32
 SH_COEFFS = (1, 4, 9, 16)  # per channel, SH degrees 0-3: the kernel's instantiations
 
-launch_count = _lib.LaunchCount()
+launch_count = _lib.LaunchCount()      # forward launches
+bwd_launch_count = _lib.LaunchCount()  # backward launches
 
 
 def cam_vector(cam, near: float = 0.01) -> np.ndarray:
@@ -55,8 +59,9 @@ def cam_vector(cam, near: float = 0.01) -> np.ndarray:
     return vec
 
 
-def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
-    """Run ``gsproject.cu`` on a CUDA model; returns the (N, 11) packed splats."""
+def _check_model(g, cam_vec: np.ndarray) -> np.ndarray:
+    """Check a CUDA model's five tensors and the camera vector; returns the
+    camera as contiguous float32."""
     dev = g.means.device
     if dev.type != "cuda":
         raise ValueError(f"gsproject kernel needs CUDA tensors, got {dev}")
@@ -64,12 +69,17 @@ def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
     for name, x, shape in (("means", g.means, (n, 3)), ("log_scales", g.log_scales, (n, 3)),
                            ("quats", g.quats, (n, 4)), ("opacity_logit", g.opacity_logit, (n,)),
                            ("sh", g.sh, (n, g.sh.shape[1], 3))):
-        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: want contiguous float32 {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        _lib.check_tensor(name, x, shape, dev)
     cam = np.ascontiguousarray(cam_vec, np.float32)
     if cam.shape != (CAM_SLOTS,):
         raise ValueError(f"camera vector must be ({CAM_SLOTS},), got {cam.shape}")
+    return cam
+
+
+def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
+    """Run ``gsproject.cu`` on a CUDA model; returns the (N, 11) packed splats."""
+    cam = _check_model(g, cam_vec)
+    dev, n = g.means.device, g.means.shape[0]
     lib = _lib.library()
     with _cost.region("gsproject") as r:
         out = torch.empty((n, 11), dtype=torch.float32, device=dev)
@@ -86,23 +96,45 @@ def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
     return out
 
 
+def launch_bwd(g, cam_vec: np.ndarray, gpacked: torch.Tensor, *, blur: float = 0.3) -> tuple:
+    """Run ``gsproject.cu``'s backward on a CUDA model and the (N, 11)
+    gradient of its packed splats; returns the gradients of means,
+    log-scales, quats, opacity logit and SH, shaped as the model."""
+    cam = _check_model(g, cam_vec)
+    dev, n = g.means.device, g.means.shape[0]
+    lib = _lib.library()
+    with _cost.region("gsproject_bwd") as r:
+        gpacked = gpacked.contiguous()
+        _lib.check_tensor("gpacked", gpacked, (n, 11), dev)
+        grads = tuple(torch.empty(x.shape, dtype=torch.float32, device=dev) for x in g)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.gsproject_bwd(
+                g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(), g.opacity_logit.data_ptr(),
+                g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, gpacked.data_ptr(),
+                *(x.data_ptr() for x in grads), n, blur, stream,
+            )
+        _lib.check("gsproject_bwd", err)
+        if r:
+            r.report(*_cost.gsproject_bwd_cost(n, g.sh.shape[1]), *grads)
+    bwd_launch_count.n += 1
+    return grads
+
+
 class Project(torch.autograd.Function):
     """The projection kernel (CUDA) or plain version (CPU) forward; the
-    plain version's VJP backward."""
+    backward kernel (CUDA) or the plain version's VJP (CPU) backward."""
 
     @staticmethod
     def forward(ctx, means, log_scales, quats, opacity_logit, sh, cam, near: float, blur: float, max_radius: float):
         ctx.near, ctx.blur, ctx.max_radius = near, blur, max_radius
         ctx.trace = steptrace.pin()  # the backward's span joins this step's tree
-        if any(ctx.needs_input_grad[:5]):
-            # the backward's plain version reads the camera on the device; an
-            # asynchronous copy now keeps it from synchronizing the stream then
-            ctx.cam = type(cam)(*[torch.as_tensor(x).to(means.device, torch.float32, non_blocking=True)
-                                  for x in cam])
         ctx.save_for_backward(means, log_scales, quats, opacity_logit, sh)
         g = G.GaussianModel(means, log_scales, quats, opacity_logit, sh)
         if means.device.type == "cuda":
-            return launch(g, cam_vector(cam, near), blur=blur)
+            ctx.cam = cam_vector(cam, near)  # the backward kernel's camera argument too
+            return launch(g, ctx.cam, blur=blur)
+        ctx.cam = cam
         with _cost.region("gsproject") as r:
             out = project_ref(g, cam, near=near, blur=blur, max_radius=max_radius)
             if r:
@@ -110,14 +142,22 @@ class Project(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gpacked):
         tc, view = ctx.trace
         with steptrace.record(tc, "vjp", view):
-            leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
-            with torch.enable_grad():
-                packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
-                                     max_radius=ctx.max_radius)
-                grads = torch.autograd.grad(packed, leaves, gpacked)
+            g = G.GaussianModel(*ctx.saved_tensors)
+            if gpacked.device.type == "cuda":
+                grads = launch_bwd(g, ctx.cam, gpacked, blur=ctx.blur)
+            else:
+                with _cost.region("gsproject_bwd") as r:
+                    leaves = [x.detach().requires_grad_() for x in g]
+                    with torch.enable_grad():
+                        packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
+                                             max_radius=ctx.max_radius)
+                        grads = torch.autograd.grad(packed, leaves, gpacked)
+                    if r:
+                        r.report(*_cost.gsproject_bwd_cost(g.n, g.sh.shape[1]), *grads)
         return (*grads, None, None, None, None)
 
 

@@ -36,12 +36,6 @@ launch_count = _lib.LaunchCount()      # forward launches
 bwd_launch_count = _lib.LaunchCount()  # backward launches
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, dev: torch.device, dtype=torch.float32) -> None:
-    if x.dtype != dtype or not x.is_contiguous() or x.device != dev or tuple(x.shape) != shape:
-        raise ValueError(f"{name}: want contiguous {dtype} {shape} on {dev}, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-
-
 def _geometry(splats_t: torch.Tensor, tile_h: int, tile_w: int) -> tuple[int, int, int]:
     dev = splats_t.device
     if dev.type != "cuda":
@@ -81,8 +75,8 @@ def composite(
     slot (the backward's residual)."""
     t_count, k, p = _geometry(splats_t, tile_h, tile_w)
     dev = splats_t.device
-    _check("splats_t", splats_t, (t_count, 11, k), dev)
-    _check("valid", valid, (t_count, k), dev)
+    _lib.check_tensor("splats_t", splats_t, (t_count, 11, k), dev)
+    _lib.check_tensor("valid", valid, (t_count, k), dev)
     with _cost.region("tile_raster_fwd") as r:
         out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
         tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
@@ -123,8 +117,8 @@ def composite_bwd(
     for name, x, shape in (("splats_t", splats_t, (t_count, 11, k)), ("valid", valid, (t_count, k)),
                            ("gout", gout, (t_count, 3, p)), ("gtfin", gtfin, (t_count, p)),
                            ("t_final", t_final, (t_count, p))):
-        _check(name, x, shape, dev)
-    _check("n_contrib", n_contrib, (t_count, p), dev, torch.int32)
+        _lib.check_tensor(name, x, shape, dev)
+    _lib.check_tensor("n_contrib", n_contrib, (t_count, p), dev, torch.int32)
     with _cost.region("tile_raster_bwd") as r:
         dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
         if t_count > 0:

@@ -135,6 +135,60 @@ def test_gsproject_kernel_matches_plain_at_higher_sh(cuda_device, degree, n):
     _assert_packed_close(got[:, P.CR:P.CB_ + 1], project_ref(G.from_numpy(g, "cpu"), cam)[:, P.CR:P.CB_ + 1])
 
 
+def _det2d(g, cam, blur: float, near: float = 0.01) -> torch.Tensor:
+    """Each Gaussian's 2D covariance determinant before the projection's
+    clamp at 1e-12, in float64 on the CPU (matrix form)."""
+    g = G.GaussianModel(*[x.detach().cpu().double() for x in g])
+    vm = torch.as_tensor(cam.viewmat, dtype=torch.float64)
+    p = g.means @ vm[:3, :3].T + vm[:3, 3]
+    z = torch.where(p[:, 2] > near, p[:, 2], torch.ones_like(p[:, 2]))
+    fx, fy, zero = float(cam.fx), float(cam.fy), torch.zeros_like(z)
+    j = torch.stack([torch.stack([fx / z, zero, -fx * p[:, 0] / z**2], -1),
+                     torch.stack([zero, fy / z, -fy * p[:, 1] / z**2], -1)], 1)
+    jw = j @ vm[:3, :3]
+    return torch.linalg.det(jw @ G.covariance3d(g) @ jw.transpose(1, 2) + blur * torch.eye(2, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [1000, 100_003])
+def test_gsproject_backward_kernel_matches_plain_vjp(cuda_device, degree, n):
+    """The backward kernel's five gradients against ``torch.autograd.grad``
+    of ``project_ref`` on the card, for a random (N, 11) splat gradient
+    nonzero in every column (depth and radius too), on a scene with
+    Gaussians behind the near plane, colors outside [0, 1] before the clamp
+    and, at blur 0, tiny anisotropic Gaussians whose 2D determinant hits
+    the clamp at 1e-12; the training path's blur 0.3 too. Two launches are
+    bitwise equal, and each call counts one launch."""
+    r = np.random.default_rng(degree)
+    host = _scene(n, seed=n + degree, spread=1.5)
+    log_scales = host.log_scales.copy()
+    log_scales[: n // 20] = r.normal(-20.0, 1.0, (n // 20, 3))
+    host = host._replace(log_scales=log_scales.astype(np.float32),
+                         sh=r.normal(0, 1.0, (n, (degree + 1) ** 2, 3)).astype(np.float32))
+    g = G.from_numpy(host, cuda_device)
+    cam = _cam(64, 64, dist=2.0)
+    gpacked = torch.tensor(r.normal(0, 1, (n, 11)), dtype=torch.float32, device=cuda_device)
+    for blur in (0.3, 0.0):
+        leaves = [x.detach().clone().requires_grad_() for x in g]
+        packed = P.project(G.GaussianModel(*leaves), cam, blur=blur)
+        colors = packed[:, P.CR:P.CB_ + 1]
+        assert (~torch.isfinite(packed[:, P.DEPTH])).any() and ((colors == 0) | (colors == 1)).any()
+        assert (_det2d(g, cam, blur) < 1e-12).any() == (blur == 0.0)
+        before = gp_ops.bwd_launch_count.n
+        got = torch.autograd.grad(packed, leaves, gpacked)
+        again = gp_ops.launch_bwd(G.GaussianModel(*leaves), gp_ops.cam_vector(cam), gpacked, blur=blur)
+        torch.cuda.synchronize()
+        assert gp_ops.bwd_launch_count.n == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        plain = [x.detach().clone().requires_grad_() for x in g]
+        want = torch.autograd.grad(project_ref(G.GaussianModel(*plain), cam, blur=blur), plain, gpacked)
+        for name, a, b in zip(G.GaussianModel._fields, got, want):
+            assert a.shape == b.shape and torch.isfinite(a).all(), name
+            scale = float(b.abs().max())
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=2e-5 * scale, rtol=2e-4,
+                                       err_msg=f"{name}, blur {blur}")
+
+
 def test_gsproject_kernel_refuses_higher_sh(cuda_device):
     g = _scene(64, seed=3)
     g = g._replace(sh=np.zeros((64, 25, 3), np.float32))
@@ -447,12 +501,13 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     gt = np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
-        counts = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n)
+        counts = (gp_ops.launch_count.n, gp_ops.bwd_launch_count.n, tr_ops.launch_count.n,
+                  tr_ops.bwd_launch_count.n)
         state, m = make_train_step(cfg)(init_state(G.from_numpy(host, dev)), cams, torch.tensor(gt, device=dev))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n) == tuple(
-                c + 2 for c in counts)
+            assert (gp_ops.launch_count.n, gp_ops.bwd_launch_count.n, tr_ops.launch_count.n,
+                    tr_ops.bwd_launch_count.n) == tuple(c + 2 for c in counts)
         out[dev.type] = (float(m["loss"]), [x.cpu().numpy() for x in state.adam.m],
                          [x.cpu().numpy() for x in (state.grad2d_accum, state.vis_count, state.max_radii)])
     (l_k, m_k, st_k), (l_c, m_c, st_c) = out["cuda"], out["cpu"]
@@ -1021,7 +1076,8 @@ def test_op_cost_of_a_train_step_is_the_same_on_card_and_cpu(cuda_device):
         counts.append(c.result())
     card, cpu = counts
     assert card["by_op"]["tile_raster_bwd"]["count"] == 2 and card["by_op"]["convolution_backward"]["count"] == 1
-    assert card["transfer_bytes"] > 0 and cpu["transfer_bytes"] == 0
+    assert card["by_op"]["gsproject_bwd"]["count"] == 2
+    assert card["transfer_bytes"] == 0 and cpu["transfer_bytes"] == 0  # the camera rides in the launches
     assert not _count_diff(card, cpu), _count_diff(card, cpu)[:10]
 
 

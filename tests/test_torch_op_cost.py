@@ -25,6 +25,7 @@ from repro.launch.hlo_cost import analyze
 from repro_torch.kernels import cost as kcost
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.gsproject.ops import project_packed
+from repro_torch.kernels.gsproject.ref import project_ref
 from repro_torch.kernels.tile_raster import ops as tr_ops
 from repro_torch.kernels.tile_raster.ref import composited_counts
 from repro_torch.launch.op_cost import OpCost, ring_moved_bytes
@@ -247,7 +248,7 @@ def test_train_step_counts_every_kernel_and_the_plain_backward():
     with OpCost() as c:
         state, m = step(state, cams, gt)
     r = c.result()
-    assert r["by_op"]["gsproject"]["count"] == 2
+    assert r["by_op"]["gsproject"]["count"] == 2 and r["by_op"]["gsproject_bwd"]["count"] == 2
     assert r["by_op"]["tile_raster_fwd"]["count"] == 2 and r["by_op"]["tile_raster_bwd"]["count"] == 2
     assert r["by_op"]["convolution"]["flops"] > 0 and r["by_op"]["convolution_backward"]["flops"] > 0
     assert r["flops"] > 0 and r["bytes"] > 0 and r["peak_live_bytes"] > 0
@@ -263,6 +264,14 @@ def test_gsproject_cost_counts_the_sh_bands():
     for c, (ops, nbytes) in want.items():
         assert kcost.gsproject_cost(1, c) == (ops, nbytes)
         assert kcost.gsproject_cost(4_000_000, c) == (4_000_000 * ops, 4_000_000 * nbytes)
+    # the backward (gsproject_bwd_kernel): the forward's 14 inputs and the
+    # splat's 11 gradient floats read, 14 gradient floats written, and 24
+    # more bytes a coefficient
+    want_bwd = {1: (579, 156), 4: (672, 228), 9: (810, 348), 16: (1057, 516)}
+    for c, (ops, nbytes) in want_bwd.items():
+        assert kcost.gsproject_bwd_cost(1, c) == (ops, nbytes) and nbytes == 156 + 24 * (c - 1)
+        assert kcost.gsproject_bwd_cost(4_000_768, c) == (4_000_768 * ops, 4_000_768 * nbytes)
+    assert 156 * 4_000_768 / 3.35e12 * 1e3 == pytest.approx(0.186, abs=1e-3)  # its byte bound at 4M, degree 0
     assert [nbytes * 4_000_000 / 3.35e12 * 1e3 for _, nbytes in list(want.values())[1:]] == pytest.approx(
         [0.162, 0.234, 0.334], abs=1e-3)  # the byte bounds at 4M on an H100
     g, cam = to_port(make_scene(300, 0), make_cam(32, 32))
@@ -272,3 +281,20 @@ def test_gsproject_cost_counts_the_sh_bands():
             project_packed(g._replace(sh=sh), cam)
         assert counter.result()["by_op"] == {"gsproject": {"count": 1, "flops": float(g.n * ops),
                                                            "bytes": float(g.n * nbytes)}}
+
+
+def test_gsproject_backward_region_on_the_cpu_reports_the_formula():
+    """A CPU backward of ``project_packed`` under the counter: the
+    ``gsproject_bwd`` region reports the backward kernel's formula once and
+    hides the plain VJP's ops; the gradients are the plain VJP's."""
+    g, cam = to_port(make_scene(300, 0), make_cam(32, 32))
+    leaves = [x.detach().clone().requires_grad_() for x in g]
+    packed = project_packed(type(g)(*leaves), cam)
+    gpacked = torch.tensor(np.random.default_rng(1).normal(0, 1, (g.n, 11)), dtype=torch.float32)
+    with OpCost() as counter:
+        got = torch.autograd.grad(packed, leaves, gpacked)
+    ops, nbytes = kcost.gsproject_bwd_cost(g.n)
+    assert counter.result()["by_op"] == {"gsproject_bwd": {"count": 1, "flops": float(ops), "bytes": float(nbytes)}}
+    plain = [x.detach().clone().requires_grad_() for x in g]
+    for a, b in zip(got, torch.autograd.grad(project_ref(type(g)(*plain), cam), plain, gpacked)):
+        assert torch.equal(a, b)
