@@ -85,6 +85,7 @@ TRAIN_STAGES = (
     "raster_bwd", # the compositor's backward (autograd thread)
     "reduce",     # the data-axis all-reduces (mesh only, per step)
     "adam",       # Adam + the statistics' accumulation (per step)
+    "adam_sh",    # Adam's update of the SH field alone, inside "adam" (per step)
 )
 
 # The loop's stages, which the JAX package's vocabulary has too, and the

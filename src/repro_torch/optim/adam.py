@@ -4,13 +4,20 @@ The JAX package's own Adam (``optim/adam.py``), not ``torch.optim.Adam``:
 eps 1e-15, a learning rate per parameter field, and the bias correction
 computed in float32 from the int32 step count, as JAX computes it. The
 update is functional, as in JAX: it returns new tensors and leaves its
-inputs alone.
+inputs alone. The SH field's update runs in the train step's stage
+``adam_sh`` (``obs/steptrace.py``), nested in ``adam``: the colour
+coefficients are most of a Gaussian's floats at higher SH degrees.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.obs import steptrace
+
+_NO_STAGE = contextlib.nullcontext()
 
 
 class AdamState(NamedTuple):
@@ -50,13 +57,15 @@ def adam_update(
         lr_tree = type(params)(*[lr_tree] * len(params))
 
     new_m, new_v, new_p = [], [], []
-    for g, m, v, p, lr in zip(grads, state.m, state.v, params, lr_tree):
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        mhat = m / bc1
-        vhat = v / bc2
-        new_m.append(m)
-        new_v.append(v)
-        new_p.append(p - lr * mhat / (torch.sqrt(vhat) + eps))
+    tc = steptrace.current()
+    for f, g, m, v, p, lr in zip(params._fields, grads, state.m, state.v, params, lr_tree):
+        with steptrace.record(tc, "adam_sh") if f == "sh" else _NO_STAGE:
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mhat = m / bc1
+            vhat = v / bc2
+            new_m.append(m)
+            new_v.append(v)
+            new_p.append(p - lr * mhat / (torch.sqrt(vhat) + eps))
     kind = type(params)
     return kind(*new_p), AdamState(kind(*new_m), kind(*new_v), count)

@@ -574,6 +574,48 @@ def test_train_step_after_densify_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(st_k[2], st_c[2])
 
 
+class _SameBatch:
+    """The views object ``GSTrainer.fit`` reads: one batch every step."""
+
+    def __init__(self, cams, gt):
+        self.cams, self.gt = cams, gt
+
+    def batches(self, batch_size, *, steps):
+        for _ in range(steps):
+            yield self.cams, self.gt
+
+
+def test_trainer_step_at_sh_degree_3_on_card_matches_cpu(cuda_device):
+    """One ``GSTrainer`` step at SH degree 3 (the published colour model,
+    16 coefficients a channel) with every band nonzero, on the card through
+    both projection kernels at degree 3, against the same step on the CPU:
+    the loss, and the SH field's gradient (Adam's first moment after one
+    step is 0.1 * g), the bands above DC included."""
+    from repro_torch.launch.train import GSTrainer
+
+    host = _scene(3000, seed=9, scale=0.03)
+    r = np.random.default_rng(9)
+    sh = np.concatenate([host.sh, 0.2 * r.normal(0, 1, (3000, 15, 3))], axis=1).astype(np.float32)
+    host = host._replace(sh=sh)
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3), sh_degree=3)
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = np.random.default_rng(9).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        tr = GSTrainer(cfg, params=G.from_numpy(host, dev), device=dev, verbose=False)
+        assert tr.state.params.sh.shape == (3000, 16, 3)
+        counts = (gp_ops.launch_count.n, gp_ops.bwd_launch_count.n)
+        losses = tr.fit(_SameBatch(cams, torch.tensor(gt, device=dev)), steps=1, densify=False)
+        if dev.type == "cuda":
+            assert (gp_ops.launch_count.n, gp_ops.bwd_launch_count.n) == tuple(c + 2 for c in counts)
+        out[dev.type] = (losses[0], tr.state.adam.m.sh.cpu().numpy() / 0.1)
+    (l_k, g_k), (l_c, g_c) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(l_k, l_c, rtol=1e-5)
+    assert np.isfinite(g_k).all() and np.abs(g_c[:, 1:]).max() > 1e-6
+    scale = np.abs(g_c).max()
+    np.testing.assert_allclose(g_k, g_c, atol=2e-5 * scale, rtol=2e-4)
+    np.testing.assert_allclose(g_k[:, 9:], g_c[:, 9:], atol=2e-5 * np.abs(g_c[:, 9:]).max(), rtol=2e-4)
+
 
 @pytest.fixture(scope="module")
 def nccl_world_one(tmp_path_factory):

@@ -34,7 +34,7 @@ from repro_torch.volume.cameras import orbit_cameras
 RES, BATCH, STEPS = 32, 2, 2
 CFG = dict(img_h=RES, img_w=RES, tile_h=16, tile_w=16, k_per_tile=32, batch_size=BATCH)
 PER_VIEW = ("project", "sort", "bin", "raster", "vjp", "raster_bwd")
-PER_STEP = ("loss", "backward", "adam")
+PER_STEP = ("loss", "backward", "adam", "adam_sh")
 MESH_ONLY = ("gather", "reduce")
 
 
@@ -236,6 +236,46 @@ def test_profiled_step_names_its_stages_with_the_recorder_off():
     assert any(_under(e, "gs.sort") for e in events if e.name == "aten::sort")
     assert any(_under(e, "gs.adam") for e in events if e.name == "aten::sqrt")
     assert tr.obs.trace.spans() == []
+
+
+def test_adam_sh_is_the_sh_fields_update_inside_adam():
+    """The ``adam_sh`` span lies inside its step's ``adam`` span (both
+    children of ``dispatch``); under the profiler with the recorder off the
+    ``gs.adam_sh`` range opens inside ``gs.adam`` around the SH field's ops
+    alone; and the new params and Adam state are bitwise the same with
+    tracing on and off."""
+    cams, gt = _batch()
+    with _OneThread():
+        off, on = _trainer(False), _trainer(True)
+        off.fit(_Feed(cams, gt), steps=STEPS, densify=False)
+        on.fit(_Feed(cams, gt), steps=STEPS, densify=False)
+    spans = on.obs.trace.drain()
+    adam = {s.meta["step"]: (s.t0, s.t1) for s in spans if s.name == "adam"}
+    sh = [s for s in spans if s.name == "adam_sh"]
+    assert len(sh) == STEPS and sorted(adam) == list(range(STEPS))
+    for s in sh:
+        assert "view" not in s.meta
+        assert adam[s.meta["step"]][0] <= s.t0 <= s.t1 <= adam[s.meta["step"]][1]
+    for a, b in zip((*off.state.params, *off.state.adam.m, *off.state.adam.v, off.state.adam.count),
+                    (*on.state.params, *on.state.adam.m, *on.state.adam.v, on.state.adam.count)):
+        assert torch.equal(a, b)
+    with _OneThread(), profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        off.fit(_Feed(cams, gt), steps=1, densify=False)
+    events = list(prof.events())
+    found = [e for e in events if e.name == "gs.adam_sh"]
+    assert len(found) == 1 and _under(found[0].cpu_parent, "gs.adam")
+    ops, stack = [], list(found[0].cpu_children)
+    while stack:
+        c = stack.pop()
+        stack.extend(c.cpu_children)
+        ops.append(c)
+    assert "aten::sqrt" in {c.name for c in ops}
+    sh_shape = list(off.state.params.sh.shape)
+    # every tensor the range's ops touch is the SH field's, or a scalar
+    assert any(sh_shape in c.input_shapes for c in ops)
+    assert all(shape == sh_shape for c in ops for shape in c.input_shapes if shape), \
+        {c.name: c.input_shapes for c in ops}
+    assert off.obs.trace.spans() == []
 
 
 def test_untraced_step_sites_allocate_nothing():
