@@ -130,7 +130,12 @@ Phases, in order (any failure exits non-zero):
      (``train_stage_breakdown``) and the busy share of one step; then
      phase 4's 4M Kingsnake at 2048 px, 4 views, 3 steps: step ms, peak
      and the busy share of one step; it fails on a non-finite loss or a
-     wrong launch count;
+     wrong launch count; then the rasterizer input gather and its
+     transpose (``slab_phase``) on one real view's lists of Miranda at 512
+     px and Kingsnake at 512 and 2048 px: the valid share of the slots, the
+     longest run of one splat with and without the padding, slab and
+     d(packed) bitwise the autograd of the two gathers, and the transpose's
+     time beside its byte bound and that autograd's (the library yardstick);
   7. lm: the attention kernel against its plain version (the JAX kernel
      test's sweep, Skv 9000, a 1024-key window and a ragged long case at
      hd 128, each in float32 on the CUDA-core kernel and in bfloat16 on the
@@ -1800,14 +1805,17 @@ def paper_fit(dev, card: str, label: str, host, data, res: int, steps: int, coun
     return tr, losses, p50, launches, peak
 
 
-def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, kingsnake_vol) -> dict:
+def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, kingsnake_vol) -> tuple:
     """Phase 5e: the paper's scale on one card. Miranda at 18,180,000
     Gaussians (``paper_scene``) at ``paper_gs_config(512)``, 8 ray-marched
     views, 4 steps, densification off, then the busy share of one step; then
     Kingsnake's 4M Gaussians (``kingsnake`` on ``kingsnake_vol``, phase 4's
     host model) at 2048 px, 4 views, 3 steps, and the busy share of one
-    step. Returns the launches of both fits."""
+    step; the input gather and its transpose (``slab_phase``) on Miranda at
+    512 px and Kingsnake at 512 and 2048 px. Returns the launches of both
+    fits and the transpose's rows."""
     from repro_torch.configs.gs_datasets import paper_scene
+    from repro_torch.core import gaussians as G
     from repro_torch.data.views import ViewDataset
 
     t0 = time.perf_counter()
@@ -1820,7 +1828,15 @@ def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, king
     cams_b, gt_b = next(iter(data.batches(4, steps=1)))
     profile_step(lambda: tr.step_fn(tr.state, cams_b, gt_b), p50,
                  label=f"paper scale step (miranda 18.18M, {PAPER_RES} px)")
-    del tr, data, host
+    del tr, data
+    slab_rows = {"miranda_512": slab_phase(card, "miranda 18.18M", G.from_numpy(host, dev), PAPER_RES, seed)}
+    del host
+    torch.cuda.empty_cache()
+    g4 = G.from_numpy(kingsnake, dev)
+    for res in (PAPER_RES, PAPER_HIGH_RES):
+        slab_rows[f"kingsnake_{res}"] = slab_phase(card, "kingsnake 4M", g4, res, seed)
+    del g4
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     data = ViewDataset(kingsnake_vol, n_views=PAPER_HIGH_VIEWS, img_h=PAPER_HIGH_RES, img_w=PAPER_HIGH_RES,
                        radius=3.0, device=dev)
@@ -1834,7 +1850,77 @@ def paper_scale_phase(dev, card: str, counters: dict, seed: int, kingsnake, king
                  label=f"paper scale step (kingsnake 4M, {PAPER_HIGH_RES} px)")
     del tr, data
     torch.cuda.empty_cache()
-    return {k: launches[k] + more[k] for k in launches}
+    return {k: launches[k] + more[k] for k in launches}, slab_rows
+
+
+# ---------------------------------------------------------------- phase 5e: the rasterizer input gather
+def slab_phase(card: str, label: str, g, res: int, seed: int) -> dict:
+    """The input gather (``slab_gather.cu``) and its transpose on one real
+    view's lists: ``g`` (a device model) projected from the first of 12
+    orbit views at ``res`` px, depth-sorted and binned as the train step
+    bins (16 x 16 tiles, K 256, hierarchical). Prints the valid share of
+    the slots and the longest run of one splat among all slots and among
+    the valid ones; holds the slab and d(packed) bitwise to autograd of the
+    two gathers (``packed[order][idx]``, the parent's path) for a random
+    d(slab) that is 0 where the compositor's backward leaves 0; then times
+    (CUDA events) the transpose beside its byte bound and the autograd of
+    the gathers as the library yardstick, and the forward beside the three
+    ops it replaces. Returns the kernel row's numbers."""
+    from repro_torch.core import projection as P
+    from repro_torch.core import render as R
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.tile_raster import ops as tr_ops
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
+    from repro_torch.volume.cameras import camera_slice, orbit_cameras
+
+    dev = g.means.device
+    cam = camera_slice(orbit_cameras(12, img_h=res, img_w=res, radius=3.0), 0)
+    with torch.no_grad():
+        packed = P.project(g, P.Camera(*[torch.as_tensor(x).to(dev) for x in cam]))
+        sorted_, order = P.sort_by_depth(packed)
+        idx, valid = R.bin_tiles(sorted_, img_h=res, img_w=res, tile_h=16, tile_w=16, k_per_tile=256, binning="hier")
+    del sorted_
+    n, (t_count, k) = packed.shape[0], idx.shape
+    rows = order[idx.long()]
+    n_valid = int(valid.sum())
+    run_all = int(torch.bincount(rows.reshape(-1), minlength=n).max())
+    run_valid = int(torch.bincount(rows[valid], minlength=n).max()) if n_valid else 0
+    del rows
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dslab = torch.randn((t_count, 11, k), device=dev, generator=gen)
+    dslab[:, 9:] = 0.0
+    dslab *= valid[:, None, :]
+    leaf = packed.clone().requires_grad_()
+    ref_slab = leaf[order][idx.long()].transpose(1, 2).contiguous()
+    (want,) = torch.autograd.grad(ref_slab, leaf, dslab, retain_graph=True)
+    slab = tr_ops.gather_slab(packed, idx, order)
+    got = tr_ops.gather_slab_bwd(dslab, valid, idx, order, n)
+    same = torch.equal(got, tr_ops.gather_slab_bwd(dslab, valid, idx, order, n))
+    equal = torch.equal(slab, ref_slab.detach()) and torch.equal(got, want)
+    del slab, got, want
+    log(f"compare slab_gather {label} N={n} {res} px ({t_count} x {k} slots): slab and d(packed) bitwise the "
+        f"autograd of the two gathers: {equal}; two transposes bitwise equal: {same}; valid slots {n_valid} "
+        f"({n_valid / (t_count * k):.4%}); longest run of one splat: {run_all} over all slots, {run_valid} over the "
+        f"valid ones")
+    if not (equal and same):
+        raise SystemExit(f"slab_gather {label}: the gather or its transpose is not bitwise the autograd of the gathers")
+    ms = cuda_ms(lambda: tr_ops.gather_slab_bwd(dslab, valid, idx, order, n), 20, f"slab_bwd {label}")
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(ref_slab, leaf, dslab, retain_graph=True), 3,
+                     f"IndexBackward0 x2 {label}")
+    fwd_ms = cuda_ms(lambda: tr_ops.gather_slab(packed, idx, order), 20, f"slab_gather {label}")
+    fwd_lib_ms = cuda_ms(lambda: packed[order][idx.long()].transpose(1, 2).contiguous(), 20,
+                         f"the three gather ops {label}")
+    ops, nbytes = kcost.slab_bwd_cost(n_valid, t_count * k, n, True)
+    bound, bound_by = kcost.bound_ms(ops, nbytes, PEAK_FLOPS_FP32, HBM_BW)
+    fops, fbytes = kcost.slab_gather_cost(t_count, k, int(torch.unique(idx).numel()), True)
+    fbound, _ = kcost.bound_ms(fops, fbytes, PEAK_FLOPS_FP32, HBM_BW)
+    log(f"time slab_bwd {label} N={n} {res} px ({card}): kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+        f"{nbytes} B, {ops} operations), kernel / bound {ms / bound:.3f}; autograd of the two gathers (two "
+        f"IndexBackward0) {lib_ms:.4f} ms, {lib_ms / ms:.1f}x the kernel; forward slab_gather {fwd_ms:.4f} ms "
+        f"(bound {fbound:.4f} ms, {fbytes} B) against packed[order][idx] and its transpose copy {fwd_lib_ms:.4f} ms")
+    return dict(n=n, res=res, slots=t_count * k, valid=n_valid, run_all=run_all, run_valid=run_valid, ms=ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms, fwd_ms=fwd_ms, fwd_bound_ms=fbound,
+                fwd_library_ms=fwd_lib_ms)
 
 
 # ---------------------------------------------------------------- phase 3: the projection's backward
@@ -2980,13 +3066,14 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = fa_ops.launch_count.n = 0
-    gp_ops.bwd_launch_count.n = 0
+    gp_ops.bwd_launch_count.n = tr_ops.slab_bwd_launch_count.n = 0
     losses = trainer.fit(data, steps=args.train_steps, log_every=1)
     metrics = trainer.evaluate(data, range(args.eval_views))
     torch.cuda.synchronize()
     train_launches = (gp_ops.launch_count.n, tr_ops.launch_count.n, tr_ops.bwd_launch_count.n,
                       fa_ops.launch_count.n)
     train_bwd_launches = gp_ops.bwd_launch_count.n
+    train_slab_bwd_launches = tr_ops.slab_bwd_launch_count.n
     train_peak = torch.cuda.max_memory_allocated(dev)
     step_ms = trainer.step_ms_log
     log(f"train {name} ({card}): {trainer.state.params.n} Gaussians after {args.train_steps} steps at batch "
@@ -3001,11 +3088,11 @@ def main(argv=None) -> int:
     want = (4 * args.train_steps + args.eval_views,) * 2 + (4 * args.train_steps, 0)
     log(f"launches on the training path: gsproject {train_launches[0]}, tile_raster_fwd {train_launches[1]}, "
         f"tile_raster_bwd {train_launches[2]}, flash_attention {train_launches[3]} (want {want}: 4 per step each, "
-        f"plus one forward per eval view, and no attention); gsproject_bwd {train_bwd_launches} (want "
-        f"{4 * args.train_steps}: 4 per step)")
+        f"plus one forward per eval view, and no attention); gsproject_bwd {train_bwd_launches}, slab_bwd "
+        f"{train_slab_bwd_launches} (want {4 * args.train_steps} each: 4 per step)")
     if not np.isfinite(losses).all() or len(losses) != args.train_steps:
         raise SystemExit(f"training losses not finite: {losses}")
-    if train_launches != want or train_bwd_launches != 4 * args.train_steps:
+    if train_launches != want or not train_bwd_launches == train_slab_bwd_launches == 4 * args.train_steps:
         raise SystemExit(f"training path launches {train_launches}, gsproject_bwd {train_bwd_launches}, want {want}, "
                          f"{4 * args.train_steps}")
     if len(trainer.densify_reports) != 1:
@@ -3021,13 +3108,13 @@ def main(argv=None) -> int:
     packed = P.project(G.GaussianModel(*leaves), view)
     gpacked = torch.randn(packed.shape, device=dev, generator=gen)
     pk_leaf = packed.detach().requires_grad_()
-    pk_sorted, order = P.sort_by_depth(pk_leaf)
+    pk_sorted, order = P.sort_by_depth(packed.detach())
     bkw = dict(img_h=tcfg.img_h, img_w=tcfg.img_w, tile_h=tcfg.tile_h, tile_w=tcfg.tile_w, k_per_tile=tcfg.k_per_tile,
                binning=tcfg.binning)
-    idx, valid = R.bin_tiles(pk_sorted.detach(), **bkw)
+    idx, valid = R.bin_tiles(pk_sorted, **bkw)
     ras = dict(img_h=tcfg.img_h, img_w=tcfg.img_w, tile_h=tcfg.tile_h, tile_w=tcfg.tile_w,
                bg=torch.zeros(3, device=dev))
-    img, _ = tr_ops.rasterize_tiles(pk_sorted, idx, valid, **ras)
+    img, _ = tr_ops.rasterize_tiles(pk_leaf, idx, valid, order=order, **ras)
     gimg = torch.randn(img.shape, device=dev, generator=gen)
     imgs = img.detach()[None].expand(b, -1, -1, -1).contiguous().requires_grad_()
     step_grads = G.GaussianModel(*[torch.randn(x.shape, device=dev, generator=gen) for x in params])
@@ -3037,12 +3124,12 @@ def main(argv=None) -> int:
             "projection": b * cuda_ms(lambda: P.project(params, view), 5, "stage projection"),
             "sort and binning": b * cuda_ms(lambda: R.bin_tiles(P.sort_by_depth(packed.detach())[0], **bkw), 3,
                                             "stage sort and binning"),
-            "rasterizer forward": b * cuda_ms(lambda: tr_ops.rasterize_tiles(pk_sorted.detach(), idx, valid, **ras),
+            "rasterizer forward": b * cuda_ms(lambda: tr_ops.rasterize_tiles(pk_leaf, idx, valid, order=order, **ras),
                                               5, "stage rasterizer forward"),
         }
     stages["loss forward and backward"] = cuda_ms(
         lambda: torch.autograd.grad(distributed_gs_loss(imgs, gt_b), imgs), 5, "stage loss")
-    stages["rasterizer backward and gather transposes"] = b * cuda_ms(
+    stages["rasterizer backward and the input gather's transpose"] = b * cuda_ms(
         lambda: torch.autograd.grad(img, pk_leaf, gimg, retain_graph=True), 5, "stage rasterizer backward")
     stages["projection backward"] = b * cuda_ms(
         lambda: torch.autograd.grad(packed, leaves, gpacked, retain_graph=True), 3, "stage projection backward")
@@ -3127,7 +3214,7 @@ def main(argv=None) -> int:
     frontend_launches = frontend_phase(dev, card, host, cfg, counters, INSITU_DIR / "seq")
 
     # ---------------------------------------------------------- 5e. paper scale
-    paper_launches = paper_scale_phase(dev, card, counters, args.seed, host, vol)
+    paper_launches, slab_rows = paper_scale_phase(dev, card, counters, args.seed, host, vol)
 
     # ---------------------------------------------------------- 7. lm
     lm_res = lm_phase(dev, card, args.seed, get_arch("qwen3-0.6b").config(), LM_BATCH, LM_SEQ,
@@ -3183,6 +3270,10 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/tile_raster/tile_raster.py:117", "launches": train_launches[2],
          "launches_by_path": by_path(2, "tile_raster_bwd"),
          "max_abs_err": bwd_err, **trb["frame"], "library_ms": None},
+        {"name": "slab_bwd", "route": "cuda", "source": "src/repro_torch/kernels/tile_raster/slab_gather.cu",
+         "replaces": None, "launches": train_slab_bwd_launches, "launches_by_path": {"train": train_slab_bwd_launches},
+         **slab_rows["kingsnake_512"], "miranda_512": slab_rows["miranda_512"],
+         "kingsnake_2048": slab_rows["kingsnake_2048"]},
         {**lm_res["entry"], "launches_by_path": by_path(3, "flash_attention"), "family_shapes": fam_rows},
     ]
     # the projection at SH degrees 1-3: each degree's launches from its own

@@ -325,15 +325,19 @@ def make_train_step(cfg: GSConfig, mesh: Mesh | None = None):
                         if strip:
                             gathered = gathered - my_shift.on(gathered.device)
             with steptrace.record(tc, "sort", i):
-                pk_sorted, _ = P.sort_by_depth(gathered)
+                # binning reads a detached sorted copy; the slabs are gathered
+                # from the unsorted splats through the order, so autograd
+                # records no permutation
+                pk_sorted, order = P.sort_by_depth(gathered.detach())
             with steptrace.record(tc, "bin", i):
                 idx, valid = R.bin_tiles(pk_sorted, img_h=strip_h, img_w=cfg.img_w, tile_h=cfg.tile_h,
                                          tile_w=cfg.tile_w, k_per_tile=cfg.k_per_tile, binning=cfg.binning)
+            del pk_sorted
             with steptrace.record(tc, "raster", i):
-                img, _ = R.raster_ops.rasterize_tiles(pk_sorted, idx, valid, img_h=strip_h, img_w=cfg.img_w,
+                img, _ = R.raster_ops.rasterize_tiles(gathered, idx, valid, img_h=strip_h, img_w=cfg.img_w,
                                                       tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-                                                      bg=bg.on(pk_sorted.device))
-            del idx, valid  # freed here, as inside render_packed, so the next view's peak is the same
+                                                      bg=bg.on(gathered.device), order=order)
+            del idx, valid, order  # freed here, as inside render_packed, so the next view's peak is the same
             imgs.append(img)
         with steptrace.record(tc, "loss"):
             loss = distributed_gs_loss(torch.stack(imgs), gt, lam=cfg.lambda_dssim, strip_axis=strip_axis,

@@ -35,6 +35,7 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 SOURCES = (
     _KERNELS_DIR / "gsproject" / "gsproject.cu",
     _KERNELS_DIR / "tile_raster" / "tile_raster.cu",
+    _KERNELS_DIR / "tile_raster" / "slab_gather.cu",
     _KERNELS_DIR / "flash_attention" / "flash_attention.cu",
 )
 # src/repro_torch/kernels -> the checkout root
@@ -53,6 +54,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # launcher name -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     # means (N,3), log_scales (N,3), quats (N,4), opacity_logit (N,), sh
@@ -71,6 +73,15 @@ SIGNATURES = {
     "tile_raster_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # tile_h, tile_w, out (4 ints: forward and backward CTAs per SM, then threads per CTA)
     "tile_raster_occupancy": (_I, _I, _P),
+    # packed (N,11), order (N,) int64 or null, tile_idx (T,K) int32, slab
+    # (T,11,K), n_tiles, k, stream
+    "slab_gather_fwd": (_P, _P, _P, _P, _I, _I, _P),
+    # n_slots (T*K), n_rows (N), out (one long long: the backward's scratch bytes)
+    "slab_bwd_scratch_bytes": (_I, _I, _P),
+    # dslab (T,11,K), valid (T,K) bool, tile_idx (T,K) int32, order (N,)
+    # int64 or null, dpacked (N,11) zero-filled, scratch, scratch bytes,
+    # n_tiles, k, n_rows, stream
+    "slab_bwd": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
     # q (B,S,H,hd), k, v (B,Skv,Hkv,hd), out (B,S,H,hd), batch, s, skv,
     # heads, kv_heads, head_dim, is_bf16, causal, window (< 0: none),
     # q_offset, scale, stream

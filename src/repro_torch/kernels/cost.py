@@ -60,6 +60,7 @@ RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T u
 # it starts from the forward's t_final and n_contrib, so no forward walk
 RASTER_BWD_OPS_PER_HIT = 66
 RASTER_FIELDS_READ = 9            # mx, my, conic a/b/c, opacity, r, g, b (not depth, radius)
+SPLAT_FIELDS = 11                 # a packed splat: the 9 above, depth, radius
 
 # the active counters of every thread (``launch/op_cost.py`` ``OpCost``):
 # empty is the one check a region costs when nothing counts
@@ -146,6 +147,23 @@ def raster_bwd_cost(valid: torch.Tensor, hits: int, p: int) -> tuple[int, int]:
     """(operations, bytes) of the rasterizer backward: ``hits`` composited
     (pixel, splat) pairs (``composited_counts(..., live_only=True)``)."""
     return hits * RASTER_BWD_OPS_PER_HIT, raster_bwd_bytes(valid, p)
+
+
+def slab_gather_cost(t_count: int, k: int, rows: int, ordered: bool) -> tuple[int, int]:
+    """(operations, bytes) of the input gather (``slab_gather.cu``): a copy,
+    so no operation; each slot reads its index and writes its splat's 11
+    floats into the slab, and each of the ``rows`` distinct splats the lists
+    name is read once (with its entry of ``order``)."""
+    return 0, t_count * k * (4 + SPLAT_FIELDS * 4) + rows * (SPLAT_FIELDS * 4 + 8 * ordered)
+
+
+def slab_bwd_cost(n_valid: int, slots: int, n: int, ordered: bool) -> tuple[int, int]:
+    """(operations, bytes) of the gather's transpose on these lists: one add
+    per gradient field of each of the ``n_valid`` valid slots; the (T, K)
+    bool valid mask read, each valid slot's index (and row of ``order``) and
+    9 gradient floats read, the (n, 11) gradient written."""
+    return (n_valid * RASTER_FIELDS_READ,
+            slots + n_valid * (4 + 8 * ordered + RASTER_FIELDS_READ * 4) + n * SPLAT_FIELDS * 4)
 
 
 def attention_pairs(s: int, skv: int, causal: bool, window, q_offset: int) -> int:

@@ -1,23 +1,26 @@
 """Wrapper of the tile rasterizer: gather, dispatch by device, image layout.
 
-``rasterize_tiles`` takes depth-sorted packed splats and per-tile index
-lists. It gathers each tile's K splats (``packed[tile_idx]``), lays them out
-as (T, 11, K) slabs, composites them, reshapes the (T, 3, P) output to an
+``rasterize_tiles`` takes packed splats and per-tile index lists into their
+depth order. It gathers each tile's K splats into a (T, 11, K) slab
+(``GatherSlab``), composites the slabs, reshapes the (T, 3, P) output to an
 (H, W, 3) image and blends the background, as the JAX package's wrapper
 does. It is differentiable with respect to ``packed``: the compositor is a
-``torch.autograd.Function`` (the JAX custom VJP), and the sum of each
-splat's gradient across the tiles that list it is autograd of the gather.
+``torch.autograd.Function`` (the JAX custom VJP), and so is the gather,
+whose backward sums each splat's gradient across the tiles that list it.
 
-On a CUDA device the Function runs ``tile_raster.cu``: ``composite`` forward
-and ``composite_bwd`` backward. The forward also writes each pixel's
+On a CUDA device the compositor runs ``tile_raster.cu``: ``composite``
+forward and ``composite_bwd`` backward. The forward also writes each pixel's
 ``n_contrib`` (one past its last composited slot); when autograd will need
 the backward, the Function saves it with ``t_final``, and the backward
-kernel starts from both instead of re-walking the forward. On the CPU it runs the plain
-versions, ``ref.composite_ref`` and ``ref.composite_bwd_ref``. There is no
-fallback: a CUDA tensor either runs the kernel or raises. Both directions
-report their work to an active operation counter (``kernels/cost.py``
-``region``) on both devices: the bounds' formulas, with the per-pixel stop
-index that ``ref.composited_counts`` gives on the same inputs.
+kernel starts from both instead of re-walking the forward. The gather runs
+``slab_gather.cu``: ``gather_slab`` forward, straight from the unsorted
+splats through ``order`` where the caller passes it, and ``gather_slab_bwd``
+backward, a deterministic transpose over the valid slots only. On the CPU
+both run their plain versions (``ref.py``). There is no fallback: a CUDA
+tensor either runs the kernel or raises. Every direction reports its work
+to an active operation counter (``kernels/cost.py`` ``region``) on both
+devices: the bounds' formulas, with the per-pixel stop index that
+``ref.composited_counts`` gives on the same inputs.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ MAX_PIXELS = 1024  # one CTA per tile: two pixels a thread forward, one backward
 
 launch_count = _lib.LaunchCount()      # forward launches
 bwd_launch_count = _lib.LaunchCount()  # backward launches
+slab_launch_count = _lib.LaunchCount()      # input gather launches
+slab_bwd_launch_count = _lib.LaunchCount()  # input gather transposes (one call: keys, sort, sums)
 
 
 def _geometry(splats_t: torch.Tensor, tile_h: int, tile_w: int) -> tuple[int, int, int]:
@@ -187,8 +192,130 @@ class Composite(torch.autograd.Function):
         return d, None, None, None, None, None
 
 
+def _check_lists(dev: torch.device, n: int, tile_idx: torch.Tensor, order) -> tuple[int, int]:
+    """(T, K) of the lists, after the checks ``slab_gather.cu`` relies on."""
+    if dev.type != "cuda":
+        raise ValueError(f"slab_gather kernel needs CUDA tensors, got {dev}")
+    if tile_idx.dim() != 2:
+        raise ValueError(f"tile_idx must be (T, K), got {tuple(tile_idx.shape)}")
+    t_count, k = tile_idx.shape
+    _lib.check_tensor("tile_idx", tile_idx, (t_count, k), dev, torch.int32)
+    if order is not None:
+        _lib.check_tensor("order", order, (n,), dev, torch.int64)
+    if t_count * k * _cost.RASTER_FIELDS_READ >= 2**31 or n >= 2**31 - 1:
+        raise ValueError(f"{t_count} x {k} slots over {n} rows: the kernel indexes slots and rows with 32 bits")
+    return t_count, k
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
+
+
+def gather_slab(packed: torch.Tensor, tile_idx: torch.Tensor, order: torch.Tensor | None = None) -> torch.Tensor:
+    """Run ``slab_gather.cu``'s forward: the (T, 11, K) slab whose slot (t, k)
+    holds row ``order[tile_idx[t, k]]`` of ``packed`` (N, 11) float32, or
+    row ``tile_idx[t, k]`` without ``order``; ``tile_idx`` (T, K) int32,
+    ``order`` (N,) int64."""
+    dev, n = packed.device, packed.shape[0]
+    t_count, k = _check_lists(dev, n, tile_idx, order)
+    _lib.check_tensor("packed", packed, (n, 11), dev)
+    with _cost.region("slab_gather") as r:
+        slab = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
+        if t_count * k > 0:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = _lib.library().slab_gather_fwd(packed.data_ptr(), _ptr(order), tile_idx.data_ptr(),
+                                                     slab.data_ptr(), t_count, k, stream)
+            _lib.check("slab_gather_fwd", err)
+            slab_launch_count.n += 1
+        if r:
+            _report_slab_gather(r, tile_idx, order, slab)
+    return slab
+
+
+def _report_slab_gather(r, tile_idx: torch.Tensor, order, slab: torch.Tensor) -> None:
+    """The gather's work (counts the distinct rows on the device: only inside
+    an active region)."""
+    t_count, k = tile_idx.shape
+    rows = int(torch.unique(tile_idx).numel())
+    r.report(*_cost.slab_gather_cost(t_count, k, rows, order is not None), slab)
+
+
+def _report_slab_bwd(r, valid: torch.Tensor, n: int, ordered: bool, dpacked: torch.Tensor) -> None:
+    """The transpose's work and the slots it summed, against all T*K (reads
+    the valid count from the device: only inside an active region)."""
+    n_valid = int(valid.sum())
+    r.report(*_cost.slab_bwd_cost(n_valid, valid.numel(), n, ordered), dpacked, scattered=n_valid,
+             slots=valid.numel())
+
+
+def gather_slab_bwd(dslab: torch.Tensor, valid: torch.Tensor, tile_idx: torch.Tensor, order: torch.Tensor | None,
+                    n: int) -> torch.Tensor:
+    """Run ``slab_gather.cu``'s backward: d(packed) (n, 11) from d(slab)
+    (T, 11, K), each row the sum of the valid slots that list it (through
+    ``order`` where given), in ascending slot order; ``valid`` (T, K) bool.
+    Deterministic, no atomics, no host synchronisation; the padding slots
+    are never read past their valid flag."""
+    dev = dslab.device
+    t_count, k = _check_lists(dev, n, tile_idx, order)
+    _lib.check_tensor("dslab", dslab, (t_count, 11, k), dev)
+    _lib.check_tensor("valid", valid, (t_count, k), dev, torch.bool)
+    with _cost.region("slab_bwd") as r:
+        dpacked = torch.zeros((n, 11), dtype=torch.float32, device=dev)
+        if t_count * k > 0:
+            lib = _lib.library()
+            nbytes = (ctypes.c_longlong * 1)()
+            with torch.cuda.device(dev):
+                _lib.check("slab_bwd_scratch_bytes", lib.slab_bwd_scratch_bytes(t_count * k, n, nbytes))
+                scratch = torch.empty((nbytes[0],), dtype=torch.uint8, device=dev)
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = lib.slab_bwd(dslab.data_ptr(), valid.data_ptr(), tile_idx.data_ptr(), _ptr(order),
+                                   dpacked.data_ptr(), scratch.data_ptr(), nbytes[0], t_count, k, n, stream)
+            _lib.check("slab_bwd", err)
+            slab_bwd_launch_count.n += 1
+        if r:
+            _report_slab_bwd(r, valid, n, order is not None, dpacked)
+    return dpacked
+
+
+class GatherSlab(torch.autograd.Function):
+    """The rasterizer's input gather: (T, 11, K) slabs of the splats each
+    tile lists, from ``packed`` through ``order`` where given. Differentiable
+    in ``packed`` only; its backward sums the valid slots alone (the
+    compositor's gradient is exactly 0 in every padding slot)."""
+
+    @staticmethod
+    def forward(ctx, packed, tile_idx, valid, order):
+        ctx.trace = steptrace.pin()  # the backward's span joins this step's tree
+        ctx.n = packed.shape[0]
+        if ctx.needs_input_grad[0]:  # serving keeps no residual
+            ctx.save_for_backward(tile_idx, valid, order)
+        if packed.device.type != "cuda":
+            with _cost.region("slab_gather") as r:
+                slab = _ref.gather_slab_ref(packed, tile_idx, order)
+                if r:
+                    _report_slab_gather(r, tile_idx, order, slab)
+            return slab
+        return gather_slab(packed, tile_idx, order)
+
+    @staticmethod
+    def backward(ctx, dslab):
+        tc, view = ctx.trace
+        with steptrace.record(tc, "slab_bwd", view):
+            tile_idx, valid, order = ctx.saved_tensors
+            dslab = dslab.contiguous()
+            if dslab.device.type == "cuda":
+                d = gather_slab_bwd(dslab, valid, tile_idx, order, ctx.n)
+            else:
+                with _cost.region("slab_bwd") as r:
+                    d = _ref.gather_slab_bwd_ref(dslab, tile_idx, order, ctx.n)
+                    if r:
+                        _report_slab_bwd(r, valid, ctx.n, order is not None, d)
+        return d, None, None, None
+
+
 def rasterize_tiles(
-    packed: torch.Tensor,      # (N, 11) depth-sorted packed splats
+    packed: torch.Tensor,      # (N, 11) packed splats, depth-sorted unless ``order`` is given
     tile_idx: torch.Tensor,    # (T, K) int
     tile_valid: torch.Tensor,  # (T, K) bool
     *,
@@ -198,13 +325,18 @@ def rasterize_tiles(
     tile_w: int,
     bg,
     row_offset: int = 0,
+    order: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Rasterize to ((H,W,3) image, (H,W) transmittance)."""
+    """Rasterize to ((H,W,3) image, (H,W) transmittance).
+
+    ``tile_idx`` indexes the depth-sorted splats: ``packed`` itself, or,
+    with ``order`` (the depth sort's permutation, ``sort_by_depth``'s
+    second result), ``packed[order]``; the gradient then reaches the
+    unsorted ``packed`` with no permutation node in between."""
     tiles_y = img_h // tile_h
     tiles_x = img_w // tile_w
-    # autograd of this gather sums each splat's per-tile gradients
-    tile_splats = packed[tile_idx.long()]                    # (T,K,11)
-    splats_t = tile_splats.transpose(1, 2).contiguous()      # (T,11,K)
+    splats_t = GatherSlab.apply(packed, tile_idx.to(torch.int32).contiguous(),
+                                tile_valid.to(torch.bool).contiguous(), order)  # (T,11,K)
     raw, tfin = Composite.apply(
         splats_t.to(torch.float32), tile_valid.to(torch.float32).contiguous(),
         tiles_x, tile_h, tile_w, int(row_offset),

@@ -14,6 +14,11 @@ with that kernel's strict gradient masks: none through the alpha clamp
 Autograd of ``composite_ref`` agrees with it except exactly at those ties,
 where ``torch.clamp`` passes the gradient.
 
+``gather_slab_ref`` is the input gather, (T, 11, K) slabs of the splats each
+tile lists, and ``gather_slab_bwd_ref`` its transpose: autograd of the same
+gathers (PyTorch's ``index_put`` with ``accumulate=True``), the oracle of
+``slab_gather.cu``.
+
 Tiles are composited one tile row at a time: a strip render (one tile row
 with ``row_offset``) then runs the very same tensor ops, at the very same
 shapes, as the matching row of a full frame. That is what keeps the CPU
@@ -228,6 +233,22 @@ def composite_bwd_ref(
                            py[r : r + tiles_x], g[r : r + tiles_x], gtfin[r : r + tiles_x])
         for r in range(0, splats_t.shape[0], tiles_x)
     ])
+
+
+def gather_slab_ref(packed: torch.Tensor, tile_idx: torch.Tensor, order: torch.Tensor | None = None) -> torch.Tensor:
+    """(T, 11, K) slab: slot (t, k) holds row ``tile_idx[t, k]`` of the
+    depth-sorted splats, ``packed[order]`` (``packed`` itself without
+    ``order``)."""
+    sorted_ = packed if order is None else packed[order]
+    return sorted_[tile_idx.long()].transpose(1, 2).contiguous()
+
+
+def gather_slab_bwd_ref(dslab: torch.Tensor, tile_idx: torch.Tensor, order: torch.Tensor | None, n: int) -> torch.Tensor:
+    """d(packed) (n, 11) from d(slab) (T, 11, K): autograd of
+    :func:`gather_slab_ref`, each row the sum of the slots that list it."""
+    with torch.enable_grad():
+        packed = torch.zeros((n, dslab.shape[1]), dtype=dslab.dtype, device=dslab.device, requires_grad=True)
+        return torch.autograd.grad(gather_slab_ref(packed, tile_idx, order), packed, dslab)[0]
 
 
 def rasterize_naive(packed: torch.Tensor, img_h: int, img_w: int, bg, chunk: int = 4096):

@@ -43,9 +43,10 @@ Conventions (``hlo_cost``'s where they carry over):
 * kernel regions (``kernels/cost.py`` ``region``): the port's hand kernels
   are C launchers the dispatcher does not see. Each wrapper opens a region,
   the counter counts no op inside it, and the wrapper reports its kernel's
-  own flops and bytes (the bounds' formulas) and its outputs, under the
-  kernel's name. On the CPU the region hides the plain version's ops, so a
-  step counts the same on both devices.
+  own flops and bytes (the bounds' formulas), its outputs and any counts of
+  its own (the input gather's transpose: the valid slots it summed against
+  all T*K), under the kernel's name. On the CPU the region hides the plain
+  version's ops, so a step counts the same on both devices.
 
 The backward that autograd runs on its device threads is counted too: the
 dispatch mode travels with autograd's thread-local state, as
@@ -177,9 +178,14 @@ class _Region:
     def __exit__(self, *exc) -> None:
         self.counter._hidden -= 1
 
-    def report(self, flops: float, nbytes: float, *outputs) -> None:
+    def report(self, flops: float, nbytes: float, *outputs, **tallies: int) -> None:
+        """The kernel's work and outputs; ``tallies`` are counts of its own
+        (e.g. the slots a transpose summed), added up in its ``by_op`` row."""
         c = self.counter
         c._add(self.name, float(flops), float(nbytes), None)
+        row = c.by_op[self.name]
+        for key, v in tallies.items():
+            row[key] = row.get(key, 0) + v
         for t in _tensors(outputs):
             c._track(t, ())
 

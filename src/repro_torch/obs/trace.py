@@ -83,6 +83,7 @@ TRAIN_STAGES = (
     "backward",   # torch.autograd.grad + densify statistics (per step)
     "vjp",        # the projection's plain-version VJP (autograd thread)
     "raster_bwd", # the compositor's backward (autograd thread)
+    "slab_bwd",   # the rasterizer input gather's transpose (autograd thread)
     "reduce",     # the data-axis all-reduces (mesh only, per step)
     "adam",       # Adam + the statistics' accumulation (per step)
     "adam_sh",    # Adam's update of the SH field alone, inside "adam" (per step)

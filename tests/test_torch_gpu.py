@@ -97,6 +97,7 @@ def test_kernel_library_builds_and_loads(cuda_device):
     assert build.path.exists()
     lib = _lib.library()
     assert lib.gsproject_fwd and lib.tile_raster_fwd and lib.tile_raster_bwd and lib.flash_attention_fwd
+    assert lib.slab_gather_fwd and lib.slab_bwd and lib.slab_bwd_scratch_bytes
     fwd_ctas, bwd_ctas, fwd_threads, bwd_threads = tr_ops.occupancy(16, 16)
     assert (fwd_threads, bwd_threads) == (128, 256)  # two pixels a thread forward, one backward
     assert fwd_ctas >= 4 and bwd_ctas >= 4
@@ -489,6 +490,158 @@ def test_rasterize_tiles_gradient_on_card_matches_cpu(cuda_device):
         grads[dev.type] = torch.autograd.grad(loss, packed)[0].cpu().numpy()
     scale = np.abs(grads["cpu"]).max()
     np.testing.assert_allclose(grads["cuda"], grads["cpu"], atol=2e-5 * scale, rtol=2e-4)
+
+
+# ---------------------------------------------------------------- the rasterizer input gather and its transpose
+def _synthetic_lists(seed, n, t_count, k, share, pad):
+    """Tile lists as binning makes them: each tile's valid rows first and
+    ascending, a share of the K slots valid (tile 0 empty, tile 1 full), the
+    padding on row 0 (``pad="zero"``: flat binning, an empty superblock) or
+    on the tile's first candidate (``"first"``)."""
+    r = np.random.default_rng(seed)
+    counts = r.binomial(k, share, t_count)
+    counts[0], counts[1] = 0, k
+    rows = np.sort(r.integers(0, n, (t_count, k)), axis=1)
+    valid = np.arange(k)[None] < counts[:, None]
+    idx = np.where(valid, rows, 0 if pad == "zero" else rows[:, :1])
+    return torch.tensor(idx, dtype=torch.int32), torch.tensor(valid)
+
+
+def _binned_lists(dev, n, res, binning, row_offset=0, center=(0.0, 0.0)):
+    """Real lists of a small scene (depth-sorted, binned as the train step
+    bins), its unsorted splats and their depth order."""
+    host = _scene(n, seed=n, spread=0.15)
+    host = host._replace(means=(host.means + np.array([*center, 0.0], np.float32)).astype(np.float32))
+    packed = P.project(G.from_numpy(host, dev), _cam(res, res)).detach()
+    sorted_, order = P.sort_by_depth(packed)
+    idx, valid = R.bin_tiles(sorted_, img_h=res, img_w=res, tile_h=16, tile_w=16, k_per_tile=64, binning=binning,
+                             row_offset=row_offset)
+    return packed, order, idx, valid
+
+
+def _slab_cotangent(seed, valid, dev):
+    """d(slab) as the compositor's backward leaves it: 0 in every padding
+    slot and in depth and radius."""
+    t_count, k = valid.shape
+    g = torch.tensor(np.random.default_rng(seed).normal(size=(t_count, 11, k)), dtype=torch.float32, device=dev)
+    g[:, 9:] = 0.0
+    return g * valid[:, None, :].to(dev)
+
+
+def _slab_case(name, dev):
+    if name.startswith("synthetic"):
+        _, n, t_count, share, pad = name.split("-")
+        n, t_count = int(n), int(t_count)
+        idx, valid = _synthetic_lists(n, n, t_count, 256, float(share), pad)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        packed = torch.randn((n, 11), device=dev, generator=gen)
+        return packed, torch.randperm(n, device=dev, generator=gen), idx.to(dev), valid.to(dev)
+    binning, res, row_offset, cx = name.split("-")
+    return _binned_lists(dev, 3001, int(res), binning, int(row_offset), (float(cx), 0.0))
+
+
+# flat and hierarchical binning, a strip's row offset, superblocks with no
+# splat (the scene moved aside), synthetic lists with empty and full tiles,
+# padding on row 0 and long valid runs (N = 1,000), and the 2048-px shape
+# (16,384 x 256 slots over 4,000,037 rows)
+SLAB_CASES = ["flat-128-0-0", "hier-256-0-0", "hier-256-64-0", "hier-256-0-0.8", "synthetic-1000-64-0.3-zero",
+              "synthetic-100003-1024-0.05-first", "synthetic-4000037-16384-0.05-first"]
+
+
+@pytest.mark.parametrize("case", SLAB_CASES)
+def test_slab_gather_and_its_transpose_are_bitwise_the_autograd_of_the_gathers(cuda_device, case):
+    """The input gather's slab is bitwise ``packed[order][idx]`` laid out
+    (T, 11, K), and its transpose's d(packed) is ``torch.equal`` to autograd
+    of those gathers (PyTorch's sort-based accumulate, padding included), with
+    and without ``order``; two runs are bitwise equal, and the backward never
+    waits on the host."""
+    packed, order, idx, valid = _slab_case(case, cuda_device)
+    if case == "hier-256-0-0.8":  # the scene aside: whole superblocks list nothing, their padding on row 0
+        empty = ~valid.any(dim=1)
+        assert bool(empty.any()) and bool((idx[empty] == 0).all())
+    assert bool(valid.any()) and not bool(valid.all())
+    n = packed.shape[0]
+    dslab = _slab_cotangent(7, valid, cuda_device)
+    for order_ in (order, None):
+        leaf = packed.clone().requires_grad_()
+        want_slab = (leaf if order_ is None else leaf[order_])[idx.long()].transpose(1, 2).contiguous()
+        (want,) = torch.autograd.grad(want_slab, leaf, dslab)
+        before = (tr_ops.slab_launch_count.n, tr_ops.slab_bwd_launch_count.n)
+        leaf2 = packed.clone().requires_grad_()
+        slab = tr_ops.GatherSlab.apply(leaf2, idx, valid, order_)
+        assert torch.equal(slab, want_slab.detach())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            (got,) = torch.autograd.grad(slab, leaf2, dslab, retain_graph=True)
+            (again,) = torch.autograd.grad(slab, leaf2, dslab)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert (tr_ops.slab_launch_count.n, tr_ops.slab_bwd_launch_count.n) == (before[0] + 1, before[1] + 2)
+        assert torch.equal(got, want), (got - want).abs().max()
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        assert bool((got[:, 9:] == 0).all()) and got.shape == (n, 11)
+
+
+def test_slab_transpose_never_reads_the_padding(cuda_device):
+    """The padding slots' gradient is never read and their rows never
+    looked up: NaN there and indices far out of range change nothing. The
+    source sums with no atomics."""
+    import pathlib
+    import re
+
+    packed, order, idx, valid = _slab_case("synthetic-100003-1024-0.05-first", cuda_device)
+    n = packed.shape[0]
+    dslab = _slab_cotangent(11, valid, cuda_device)
+    want = tr_ops.gather_slab_bwd(dslab, valid, idx, order, n)
+    pad = ~valid[:, None, :].expand_as(dslab)
+    poisoned = tr_ops.gather_slab_bwd(dslab.masked_fill(pad, float("nan")), valid,
+                                      idx.masked_fill(~valid, 2**31 - 1), order, n)
+    assert torch.equal(poisoned, want) and bool(torch.isfinite(want).all())
+    src = pathlib.Path(tr_ops.__file__).with_name("slab_gather.cu").read_text()
+    assert not re.search(r"\batomic\w*\s*\(", src)  # no atomicAdd, atomicCAS, ... call
+
+
+def test_rasterize_tiles_gradient_through_the_order_is_bitwise_the_two_gathers(cuda_device):
+    """``rasterize_tiles`` from the unsorted splats through the depth order,
+    on the card: image and d(packed) bitwise those of the two autograd
+    gathers, ``packed[order][idx]``, into the same compositor."""
+    packed, order, idx, valid = _binned_lists(cuda_device, 3001, 256, "hier")
+    kw = dict(img_h=256, img_w=256, tile_h=16, tile_w=16, bg=torch.tensor([0.2, 0.4, 0.6], device=cuda_device))
+    target = torch.rand((256, 256, 3), device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(1))
+    leaf = packed.clone().requires_grad_()
+    img, t = tr_ops.rasterize_tiles(leaf, idx, valid, order=order, **kw)
+    (got,) = torch.autograd.grad((img - target).abs().mean() + t.mean(), leaf)
+    leaf2 = packed.clone().requires_grad_()
+    splats_t = leaf2[order][idx.long()].transpose(1, 2).contiguous()
+    raw, tfin = tr_ops.Composite.apply(splats_t, valid.float().contiguous(), 16, 16, 16, 0)
+    img2 = raw.reshape(16, 16, 3, 16, 16).permute(0, 3, 1, 4, 2).reshape(256, 256, 3)
+    t2 = tfin.reshape(16, 16, 16, 16).permute(0, 2, 1, 3).reshape(256, 256)
+    img2 = img2 + t2[..., None] * kw["bg"]
+    (want,) = torch.autograd.grad((img2 - target).abs().mean() + t2.mean(), leaf2)
+    assert torch.equal(img, img2) and torch.equal(t, t2)
+    assert torch.equal(got, want) and bool(got.abs().sum() > 0)
+
+
+def test_train_step_on_card_runs_no_index_backward(cuda_device):
+    """The train step's backward on the card: no ``IndexBackward0`` node and
+    no ``indexing_backward_kernel``; the transpose is one ``slab_bwd`` a
+    view, inside its ``gs.slab_bwd`` range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    host = _scene(3000, seed=4, scale=0.03)
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3))
+    cams = stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)])
+    gt = torch.tensor(np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32), device=cuda_device)
+    step, state = make_train_step(cfg), init_state(G.from_numpy(host, cuda_device))
+    step(state, cams, gt)
+    before = tr_ops.slab_bwd_launch_count.n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, m = step(state, cams, gt)
+        float(m["loss"])
+    names = {e.name for e in prof.events()}
+    assert tr_ops.slab_bwd_launch_count.n == before + 2 and "gs.slab_bwd" in names
+    assert "IndexBackward0" not in names and not [x for x in names if "indexing_backward" in x]
 
 
 def test_train_step_on_card_matches_cpu(cuda_device):
@@ -1119,6 +1272,11 @@ def test_op_cost_of_a_train_step_is_the_same_on_card_and_cpu(cuda_device):
     card, cpu = counts
     assert card["by_op"]["tile_raster_bwd"]["count"] == 2 and card["by_op"]["convolution_backward"]["count"] == 1
     assert card["by_op"]["gsproject_bwd"]["count"] == 2
+    # the input gather's transpose: the same work and the same slots summed of all T*K
+    assert card["by_op"]["slab_gather"]["count"] == card["by_op"]["slab_bwd"]["count"] == 2
+    for key in ("scattered", "slots"):
+        assert card["by_op"]["slab_bwd"][key] == cpu["by_op"]["slab_bwd"][key]
+    assert 0 < card["by_op"]["slab_bwd"]["scattered"] <= card["by_op"]["slab_bwd"]["slots"] == 2 * 16 * 64
     assert card["transfer_bytes"] == 0 and cpu["transfer_bytes"] == 0  # the camera rides in the launches
     assert not _count_diff(card, cpu), _count_diff(card, cpu)[:10]
 

@@ -250,6 +250,14 @@ def test_train_step_counts_every_kernel_and_the_plain_backward():
     r = c.result()
     assert r["by_op"]["gsproject"]["count"] == 2 and r["by_op"]["gsproject_bwd"]["count"] == 2
     assert r["by_op"]["tile_raster_fwd"]["count"] == 2 and r["by_op"]["tile_raster_bwd"]["count"] == 2
+    # the input gather and its transpose, each view through the depth order
+    assert r["by_op"]["slab_gather"]["count"] == 2 and r["by_op"]["slab_bwd"]["count"] == 2
+    assert 2 * 4 * 64 * 48 < r["by_op"]["slab_gather"]["bytes"] <= 2 * 4 * 64 * (48 + 52)
+    bwd = r["by_op"]["slab_bwd"]
+    assert bwd["slots"] == 2 * 4 * 64 and 0 < bwd["scattered"] <= bwd["slots"]
+    assert bwd["flops"] == 9 * bwd["scattered"]
+    assert bwd["bytes"] == bwd["slots"] + bwd["scattered"] * (4 + 8 + 36) + 2 * state.params.n * 44
+    assert "index_put" not in r["by_op"] and "_index_put_impl_" not in r["by_op"]  # no transpose outside it
     assert r["by_op"]["convolution"]["flops"] > 0 and r["by_op"]["convolution_backward"]["flops"] > 0
     assert r["flops"] > 0 and r["bytes"] > 0 and r["peak_live_bytes"] > 0
     assert r["coll_total_moved_bytes"] == 0

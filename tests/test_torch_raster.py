@@ -3,8 +3,11 @@ with row offsets) equal to the JAX package's entry for entry; the port's
 rasterizer (plain version on the CPU) against the JAX oracle and the JAX
 Pallas rasterizer in interpret mode over the JAX kernel tests' shape sweep;
 the CUDA kernel's per-pixel algorithm (chunks of splats evaluated ahead of a
-sequential transmittance chain with early exit) against the plain version. The kernel itself is held to the plain version
-in tests/test_torch_gpu.py, on the card."""
+sequential transmittance chain with early exit) against the plain version; the
+input gather's plain path bitwise the autograd of the two gathers it replaced,
+and its CUDA transpose's algorithm (valid slots only, a stable sort, run sums)
+bitwise the slot-order sum over every slot. The kernels themselves are held to
+the plain versions in tests/test_torch_gpu.py, on the card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,9 +226,122 @@ def test_kernel_algorithm_matches_plain_version(row_offset):
 def test_cpu_tensors_never_reach_the_kernel():
     pj, pt = _sorted_pair(64, 32, 32)
     idx, valid = TR.build_tile_lists(pt, img_h=32, img_w=32, k_per_tile=64)
-    before = tr_ops.launch_count.n
-    tr_ops.rasterize_tiles(pt, idx, valid, img_h=32, img_w=32, tile_h=16, tile_w=16, bg=(0.0, 0.0, 0.0))
-    assert tr_ops.launch_count.n == before
+    before = (tr_ops.launch_count.n, tr_ops.slab_launch_count.n, tr_ops.slab_bwd_launch_count.n)
+    leaf = pt.clone().requires_grad_()
+    img, _ = tr_ops.rasterize_tiles(leaf, idx, valid, img_h=32, img_w=32, tile_h=16, tile_w=16, bg=(0.0, 0.0, 0.0))
+    img.sum().backward()
+    assert (tr_ops.launch_count.n, tr_ops.slab_launch_count.n, tr_ops.slab_bwd_launch_count.n) == before
     slab = pt[idx.long()].transpose(1, 2).contiguous()
     with pytest.raises(ValueError, match="CUDA"):
         tr_ops.composite(slab, valid.float(), tiles_x=2, tile_h=16, tile_w=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tr_ops.gather_slab(pt, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        tr_ops.gather_slab_bwd(slab, valid, idx, None, pt.shape[0])
+
+
+def _parent_gather_grad(packed, idx, valid, order, kw):
+    """d(packed) of a loss through the rasterizer as the port built it before
+    the input gather was a Function: autograd of ``packed[order][idx]`` and
+    its transpose copy (``index_put(accumulate=True)`` backward)."""
+    leaf = packed.detach().clone().requires_grad_()
+    sorted_ = leaf if order is None else leaf[order]
+    splats_t = sorted_[idx.long()].transpose(1, 2).contiguous()
+    raw, tfin = tr_ops.Composite.apply(splats_t, valid.float().contiguous(), kw["img_w"] // 16, 16, 16,
+                                       kw.get("row_offset", 0))
+    (raw.square().sum() + tfin.sum()).backward()
+    return leaf.grad, splats_t.detach()
+
+
+@pytest.mark.parametrize("binning,row_offset", [("flat", 0), ("hier", 0), ("hier", 32)])
+@pytest.mark.parametrize("through_order", [False, True])
+def test_input_gather_gradient_is_the_plain_autograd(binning, row_offset, through_order):
+    """The plain path of ``GatherSlab`` (the CPU's): its slab and d(packed)
+    equal, bit for bit, autograd of the two gathers the rasterizer wrapper
+    ran before it was a Function, from the sorted splats or from the unsorted
+    ones through the depth order. One torch thread: the CPU's accumulate
+    sums a row's duplicates in a thread-dependent order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _check_input_gather_gradient(binning, row_offset, through_order)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _check_input_gather_gradient(binning, row_offset, through_order):
+    pj, pt = _sorted_pair(300, 64, 64, seed=23)
+    unsorted = pt[torch.randperm(pt.shape[0], generator=torch.Generator().manual_seed(23))]
+    sorted_, order = TP.sort_by_depth(unsorted)
+    kw = dict(img_h=64, img_w=64, tile_h=16, tile_w=16, k_per_tile=64, row_offset=row_offset)
+    idx, valid = TR.bin_tiles(sorted_, **kw, binning=binning)
+    assert not bool(valid.all()) and bool(valid.any())  # padding and valid slots both
+    src, order_ = (unsorted, order) if through_order else (sorted_, None)
+    leaf = src.clone().requires_grad_()
+    slab = tr_ops.GatherSlab.apply(leaf, idx, valid, order_)
+    raw, tfin = tr_ops.Composite.apply(slab, valid.float().contiguous(), 4, 16, 16, row_offset)
+    (raw.square().sum() + tfin.sum()).backward()
+    want, want_slab = _parent_gather_grad(src, idx, valid, order_, kw)
+    assert torch.equal(slab.detach(), want_slab)
+    assert torch.equal(leaf.grad, want)
+    assert bool((leaf.grad[:, 9:] == 0).all()) and bool(leaf.grad.abs().sum() > 0)
+
+
+def _valid_run_sums(dslab, valid, idx, order, n):
+    """``slab_gather.cu``'s backward in numpy: keys (the row of each valid
+    slot, n for padding), a stable sort, each run summed in float32 in slot
+    order from 0; depth and radius left 0."""
+    rows = idx.long() if order is None else order[idx.long()]
+    keys = torch.where(valid, rows, torch.full_like(rows, n)).reshape(-1).numpy()
+    pos = np.argsort(keys, kind="stable")
+    g = dslab.permute(0, 2, 1).reshape(-1, 11).numpy()  # (T*K, 11), slot order
+    out = np.zeros((n, 11), np.float32)
+    runs = {}
+    for j in pos:
+        if keys[j] < n:
+            runs.setdefault(int(keys[j]), []).append(int(j))
+    for r, slots in runs.items():
+        assert slots == sorted(slots)  # the stable sort keeps slot order
+        acc = np.zeros(9, np.float32)
+        for j in slots:
+            acc = (acc + g[j, :9]).astype(np.float32)
+        out[r, :9] = acc
+    return torch.from_numpy(out), max(len(v) for v in runs.values())
+
+
+def _slot_order_fold(dslab, keys, n):
+    """Every slot's gradient added into row ``keys[slot]`` in ascending slot
+    order from 0, in float32 (what PyTorch's CUDA accumulate computes after
+    its stable sort); key n drops a slot."""
+    out = np.zeros((n + 1, 11), np.float32)
+    np.add.at(out, keys.reshape(-1).numpy(), dslab.permute(0, 2, 1).reshape(-1, 11).numpy())
+    return torch.from_numpy(out[:n])
+
+
+@pytest.mark.parametrize("binning", ["flat", "hier"])
+def test_transpose_over_valid_slots_equals_the_sum_with_padding(binning):
+    """The CUDA transpose's algorithm (``_valid_run_sums``) against the
+    slot-order sum over every slot, padding included, as the CUDA autograd
+    of the gathers takes it: the compositor's backward gives the padding
+    exact zeros, so dropping them changes no bit, while the padding makes one
+    row's run far longer than any run of valid slots. The CPU's autograd
+    sums in another order: equal to float32 rounding."""
+    pj, pt = _sorted_pair(300, 64, 128, seed=29)
+    n = pt.shape[0]
+    unsorted = pt[torch.randperm(n, generator=torch.Generator().manual_seed(29))]
+    sorted_, order = TP.sort_by_depth(unsorted)
+    kw = dict(img_h=64, img_w=128, tile_h=16, tile_w=16, k_per_tile=128)
+    idx, valid = TR.bin_tiles(sorted_, **kw, binning=binning)
+    slab = tr_ref.gather_slab_ref(unsorted, idx, order)
+    vf = valid.float().contiguous()
+    out, tfin = tr_ref.composite_ref(slab, vf, tiles_x=8, tile_h=16, tile_w=16)
+    dslab = tr_ref.composite_bwd_ref(slab, vf, 2 * out, torch.ones_like(tfin), tiles_x=8, tile_h=16, tile_w=16)
+    assert bool((dslab.permute(0, 2, 1)[~valid] == 0).all())  # padding: exact zeros
+    rows = order[idx.long()]
+    got, longest = _valid_run_sums(dslab, valid, idx, order, n)
+    assert torch.equal(got, _slot_order_fold(dslab, rows, n))
+    assert torch.equal(got, _slot_order_fold(dslab, torch.where(valid, rows, torch.full_like(rows, n)), n))
+    scale = float(got.abs().max())
+    np.testing.assert_allclose(np_(got), np_(tr_ref.gather_slab_bwd_ref(dslab, idx, order, n)), rtol=1e-5,
+                               atol=1e-6 * scale)
+    assert longest < int(torch.bincount(rows.reshape(-1)).max())

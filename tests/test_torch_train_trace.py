@@ -33,7 +33,7 @@ from repro_torch.volume.cameras import orbit_cameras
 
 RES, BATCH, STEPS = 32, 2, 2
 CFG = dict(img_h=RES, img_w=RES, tile_h=16, tile_w=16, k_per_tile=32, batch_size=BATCH)
-PER_VIEW = ("project", "sort", "bin", "raster", "vjp", "raster_bwd")
+PER_VIEW = ("project", "sort", "bin", "raster", "vjp", "raster_bwd", "slab_bwd")
 PER_STEP = ("loss", "backward", "adam", "adam_sh")
 MESH_ONLY = ("gather", "reduce")
 
@@ -145,7 +145,7 @@ def test_backward_spans_join_their_step_from_another_thread():
     t.join()
     assert seen == [None]
     got = {(s.name, s.rid, s.meta["step"], s.meta["view"]) for s in rec.spans()}
-    assert got == {("vjp", 41, 7, 1), ("raster_bwd", 41, 7, 1)}
+    assert got == {("vjp", 41, 7, 1), ("raster_bwd", 41, 7, 1), ("slab_bwd", 41, 7, 1)}
 
 
 def test_a_render_on_another_thread_stays_out_of_the_step():
