@@ -13,6 +13,9 @@ source builds a new library, and a stale one is never loaded. Concurrent
 builders (test workers) each build to a private temporary name and rename it
 into place, which is atomic.
 
+Every launch goes through ``call``: it runs the launcher on its device's
+current stream, raises on a refused launch and counts it in ``launches``.
+
 Nothing is built or loaded at import: the CPU-only test host imports every
 module and has no ``nvcc``.
 """
@@ -175,9 +178,26 @@ def check_tensor(name: str, x: torch.Tensor, shape: tuple, dev: torch.device, dt
 
 
 class LaunchCount:
-    """A kernel wrapper's launch counter: ``n`` rises by one per launch."""
+    """A launcher's launch counter: ``n`` rises by one per launch."""
 
     __slots__ = ("n",)
 
     def __init__(self) -> None:
         self.n = 0
+
+
+_launches: dict[str, LaunchCount] = {}
+
+
+def launches(name: str) -> LaunchCount:
+    """The launch count of launcher ``name``: one object per name."""
+    return _launches.setdefault(name, LaunchCount())
+
+
+def call(name: str, dev: torch.device, *args) -> None:
+    """Run launcher ``name`` on ``dev``'s current stream (passed after
+    ``args``); raise if the launch was refused, else count it."""
+    with torch.cuda.device(dev):
+        err = getattr(library(), name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check(name, err)
+    launches(name).n += 1

@@ -7,10 +7,11 @@ the kernel's function needs on these inputs, as the bounds do: each input
 byte read once, each output byte written once, and the operations the
 kernel's source does per unit of work.
 
-A kernel's wrapper reports that work to the active counter, on both devices:
+Each direction of a kernel's autograd Function reports that work to the
+active counter from one region, around its one choice of device:
 
     with cost.region("gsproject") as r:
-        out = launch(...)            # or the plain version on the CPU
+        out = launch(...) if cuda else project_ref(...)  # the kernel or the plain version
         if r:
             r.report(*cost.gsproject_cost(n), out)
 

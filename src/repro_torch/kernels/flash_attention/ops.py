@@ -12,9 +12,10 @@ K and V through shared memory.
 It is a ``torch.autograd.Function`` on both devices whose backward is the
 vector-Jacobian product of the plain version, recomputed from the saved
 inputs, as the JAX package's ``custom_vjp`` does with its oracle. The
-forward reports its work to an active operation counter
-(``kernels/cost.py`` ``region``) on both devices; the backward's plain ops
-are counted one by one.
+forward opens one operation-counter region (``kernels/cost.py``
+``region``) around its choice of device and reports the kernel's formula
+from it on both; the backward's plain ops are counted one by one.
+``launch`` only checks, allocates and launches.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 HEAD_DIMS = (32, 64, 112, 128)  # head widths the kernel is instantiated for
 DTYPES = (torch.float32, torch.bfloat16)
 
-launch_count = _lib.LaunchCount()
+launch_count = _lib.launches("flash_attention_fwd")
 
 
 def _rows_reach_a_key(s: int, skv: int, causal: bool, window: int | None, q_offset: int) -> bool:
@@ -71,25 +72,15 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = 
                                  f"base pointer, got {x.data_ptr():#x}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    out = torch.empty_like(q)
     if s == 0 or b * h == 0:
-        return torch.empty_like(q)
+        return out
     if not _rows_reach_a_key(s, skv, causal, window, q_offset):
         raise ValueError(f"q_offset {q_offset}, window {window}, causal {causal} over Skv {skv} leave a query "
                          "row with no unmasked key; the kernel's result is defined only where every row has one")
-    lib = _lib.library()
-    with _cost.region("flash_attention") as r:
-        out = torch.empty_like(q)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv, h, hkv, hd,
-                int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else int(window), int(q_offset),
-                1.0 / math.sqrt(hd), stream,
-            )
-        _lib.check("flash_attention_fwd", err)
-        if r:
-            r.report(*_cost.attention_cost(q, k, v, causal=causal, window=window, q_offset=q_offset), out)
-    launch_count.n += 1
+    _lib.call("flash_attention_fwd", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv, h, hkv,
+              hd, int(q.dtype == torch.bfloat16), int(causal), -1 if window is None else int(window), int(q_offset),
+              1.0 / math.sqrt(hd))
     return out
 
 
@@ -101,12 +92,13 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, window, q_offset: int):
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
         ctx.save_for_backward(q, k, v)
-        if q.device.type == "cuda":
-            return launch(q, k, v, **ctx.kw)
         with _cost.region("flash_attention") as r:
-            # contiguous, as the kernel writes it, so that what follows runs
-            # the same ops on both devices
-            out = attention_ref(q, k, v, **ctx.kw).contiguous()
+            if q.device.type == "cuda":
+                out = launch(q, k, v, **ctx.kw)
+            else:
+                # contiguous, as the kernel writes it, so that what follows
+                # runs the same ops on both devices
+                out = attention_ref(q, k, v, **ctx.kw).contiguous()
             if r:
                 r.report(*_cost.attention_cost(q, k, v, **ctx.kw), out)
         return out

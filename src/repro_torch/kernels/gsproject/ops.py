@@ -16,10 +16,11 @@ writes the five parameter gradients from the saved parameters, the
 forward's camera vector and the (N, 11) splat gradients. On the CPU it is
 the vector-Jacobian product of ``project_ref``, recomputed from the saved
 inputs, as the JAX package's wrapper does with its oracle; no autograd
-graph of the plain version is kept between forward and backward. Both
-directions report their work to an active operation counter
-(``kernels/cost.py`` ``region``) on both devices, so a step counts the same
-on either.
+graph of the plain version is kept between forward and backward. Each
+direction of ``Project`` opens one operation-counter region
+(``kernels/cost.py`` ``region``) around its choice of device and reports
+the kernel's formula from it, so a step counts the same on either device.
+``launch`` and ``launch_bwd`` only check, allocate and launch.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ from repro_torch.obs import steptrace
 CAM_SLOTS = 32  # viewmat(16), fx, fy, cx, cy, near, campos(3) -> padded to 32
 SH_COEFFS = (1, 4, 9, 16)  # per channel, SH degrees 0-3: the kernel's instantiations
 
-launch_count = _lib.LaunchCount()      # forward launches
-bwd_launch_count = _lib.LaunchCount()  # backward launches
+launch_count = _lib.launches("gsproject_fwd")
+bwd_launch_count = _lib.launches("gsproject_bwd")
 
 
 def cam_vector(cam, near: float = 0.01) -> np.ndarray:
@@ -80,19 +81,10 @@ def launch(g, cam_vec: np.ndarray, *, blur: float = 0.3) -> torch.Tensor:
     """Run ``gsproject.cu`` on a CUDA model; returns the (N, 11) packed splats."""
     cam = _check_model(g, cam_vec)
     dev, n = g.means.device, g.means.shape[0]
-    lib = _lib.library()
-    with _cost.region("gsproject") as r:
-        out = torch.empty((n, 11), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.gsproject_fwd(
-                g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(), g.opacity_logit.data_ptr(),
-                g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, out.data_ptr(), n, blur, stream,
-            )
-        _lib.check("gsproject_fwd", err)
-        if r:
-            r.report(*_cost.gsproject_cost(n, g.sh.shape[1]), out)
-    launch_count.n += 1
+    out = torch.empty((n, 11), dtype=torch.float32, device=dev)
+    _lib.call("gsproject_fwd", dev, g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(),
+              g.opacity_logit.data_ptr(), g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, out.data_ptr(), n,
+              blur)
     return out
 
 
@@ -102,22 +94,12 @@ def launch_bwd(g, cam_vec: np.ndarray, gpacked: torch.Tensor, *, blur: float = 0
     log-scales, quats, opacity logit and SH, shaped as the model."""
     cam = _check_model(g, cam_vec)
     dev, n = g.means.device, g.means.shape[0]
-    lib = _lib.library()
-    with _cost.region("gsproject_bwd") as r:
-        gpacked = gpacked.contiguous()
-        _lib.check_tensor("gpacked", gpacked, (n, 11), dev)
-        grads = tuple(torch.empty(x.shape, dtype=torch.float32, device=dev) for x in g)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.gsproject_bwd(
-                g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(), g.opacity_logit.data_ptr(),
-                g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, gpacked.data_ptr(),
-                *(x.data_ptr() for x in grads), n, blur, stream,
-            )
-        _lib.check("gsproject_bwd", err)
-        if r:
-            r.report(*_cost.gsproject_bwd_cost(n, g.sh.shape[1]), *grads)
-    bwd_launch_count.n += 1
+    gpacked = gpacked.contiguous()
+    _lib.check_tensor("gpacked", gpacked, (n, 11), dev)
+    grads = tuple(torch.empty(x.shape, dtype=torch.float32, device=dev) for x in g)
+    _lib.call("gsproject_bwd", dev, g.means.data_ptr(), g.log_scales.data_ptr(), g.quats.data_ptr(),
+              g.opacity_logit.data_ptr(), g.sh.data_ptr(), 3 * g.sh.shape[1], cam.ctypes.data, gpacked.data_ptr(),
+              *(x.data_ptr() for x in grads), n, blur)
     return grads
 
 
@@ -131,12 +113,11 @@ class Project(torch.autograd.Function):
         ctx.trace = steptrace.pin()  # the backward's span joins this step's tree
         ctx.save_for_backward(means, log_scales, quats, opacity_logit, sh)
         g = G.GaussianModel(means, log_scales, quats, opacity_logit, sh)
-        if means.device.type == "cuda":
-            ctx.cam = cam_vector(cam, near)  # the backward kernel's camera argument too
-            return launch(g, ctx.cam, blur=blur)
-        ctx.cam = cam
+        cuda = means.device.type == "cuda"
+        ctx.cam = cam_vector(cam, near) if cuda else cam  # on CUDA the backward kernel's camera argument too
         with _cost.region("gsproject") as r:
-            out = project_ref(g, cam, near=near, blur=blur, max_radius=max_radius)
+            out = launch(g, ctx.cam, blur=blur) if cuda else project_ref(g, cam, near=near, blur=blur,
+                                                                         max_radius=max_radius)
             if r:
                 r.report(*_cost.gsproject_cost(g.n, sh.shape[1]), out)
         return out
@@ -145,31 +126,29 @@ class Project(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gpacked):
         tc, view = ctx.trace
-        with steptrace.record(tc, "vjp", view):
+        with steptrace.record(tc, "vjp", view), _cost.region("gsproject_bwd") as r:
             g = G.GaussianModel(*ctx.saved_tensors)
             if gpacked.device.type == "cuda":
                 grads = launch_bwd(g, ctx.cam, gpacked, blur=ctx.blur)
             else:
-                with _cost.region("gsproject_bwd") as r:
-                    leaves = [x.detach().requires_grad_() for x in g]
-                    with torch.enable_grad():
-                        packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
-                                             max_radius=ctx.max_radius)
-                        grads = torch.autograd.grad(packed, leaves, gpacked)
-                    if r:
-                        r.report(*_cost.gsproject_bwd_cost(g.n, g.sh.shape[1]), *grads)
+                leaves = [x.detach().requires_grad_() for x in g]
+                with torch.enable_grad():
+                    packed = project_ref(G.GaussianModel(*leaves), ctx.cam, near=ctx.near, blur=ctx.blur,
+                                         max_radius=ctx.max_radius)
+                    grads = torch.autograd.grad(packed, leaves, gpacked)
+            if r:
+                r.report(*_cost.gsproject_bwd_cost(g.n, g.sh.shape[1]), *grads)
         return (*grads, None, None, None, None)
 
 
 def project_packed(g, cam, *, near: float = 0.01, blur: float = 0.3, max_radius: float = 1e4) -> torch.Tensor:
     """(N, 11) packed splats: the plain version on CPU, the kernel on CUDA."""
-    if g.means.device.type != "cuda":
-        return Project.apply(*g, cam, near, blur, max_radius)
-    if g.sh.shape[1] not in SH_COEFFS:
-        raise NotImplementedError(
-            f"the CUDA projection kernel covers SH degrees 0-3; this model has SH degree {g.sh_degree} "
-            f"({g.sh.shape[1]} coefficients per channel)"
-        )
-    if max_radius != 1e4:
-        raise NotImplementedError("the CUDA projection kernel clamps the radius at 1e4")
+    if g.means.device.type == "cuda":
+        if g.sh.shape[1] not in SH_COEFFS:
+            raise NotImplementedError(
+                f"the CUDA projection kernel covers SH degrees 0-3; this model has SH degree {g.sh_degree} "
+                f"({g.sh.shape[1]} coefficients per channel)"
+            )
+        if max_radius != 1e4:
+            raise NotImplementedError("the CUDA projection kernel clamps the radius at 1e4")
     return Project.apply(*g, cam, near, blur, max_radius)

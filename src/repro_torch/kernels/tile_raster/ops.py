@@ -17,10 +17,12 @@ kernel starts from both instead of re-walking the forward. The gather runs
 splats through ``order`` where the caller passes it, and ``gather_slab_bwd``
 backward, a deterministic transpose over the valid slots only. On the CPU
 both run their plain versions (``ref.py``). There is no fallback: a CUDA
-tensor either runs the kernel or raises. Every direction reports its work
-to an active operation counter (``kernels/cost.py`` ``region``) on both
-devices: the bounds' formulas, with the per-pixel stop index that
-``ref.composited_counts`` gives on the same inputs.
+tensor either runs the kernel or raises. Each direction of ``Composite``
+and ``GatherSlab`` opens one operation-counter region (``kernels/cost.py``
+``region``) around its choice of device and reports from it on both: the
+bounds' formulas, with the per-pixel stop index that
+``ref.composited_counts`` gives on the same inputs. The four launchers
+only check, allocate and launch.
 """
 from __future__ import annotations
 
@@ -35,10 +37,10 @@ from repro_torch.obs import steptrace
 
 MAX_PIXELS = 1024  # one CTA per tile: two pixels a thread forward, one backward
 
-launch_count = _lib.LaunchCount()      # forward launches
-bwd_launch_count = _lib.LaunchCount()  # backward launches
-slab_launch_count = _lib.LaunchCount()      # input gather launches
-slab_bwd_launch_count = _lib.LaunchCount()  # input gather transposes (one call: keys, sort, sums)
+launch_count = _lib.launches("tile_raster_fwd")
+bwd_launch_count = _lib.launches("tile_raster_bwd")
+slab_launch_count = _lib.launches("slab_gather_fwd")  # input gathers
+slab_bwd_launch_count = _lib.launches("slab_bwd")  # input gather transposes (one call: keys, sort, sums)
 
 
 def _geometry(splats_t: torch.Tensor, tile_h: int, tile_w: int) -> tuple[int, int, int]:
@@ -82,23 +84,12 @@ def composite(
     dev = splats_t.device
     _lib.check_tensor("splats_t", splats_t, (t_count, 11, k), dev)
     _lib.check_tensor("valid", valid, (t_count, k), dev)
-    with _cost.region("tile_raster_fwd") as r:
-        out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
-        tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
-        n_contrib = torch.empty((t_count, p), dtype=torch.int32, device=dev)
-        if t_count > 0:
-            lib = _lib.library()
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.tile_raster_fwd(
-                    splats_t.data_ptr(), valid.data_ptr(), out.data_ptr(), tfin.data_ptr(),
-                    n_contrib.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset), stream,
-                )
-            _lib.check("tile_raster_fwd", err)
-            launch_count.n += 1
-        if r:
-            kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
-            r.report(*_fwd_cost(splats_t, valid, kw), out, tfin, n_contrib)
+    out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
+    tfin = torch.empty((t_count, p), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((t_count, p), dtype=torch.int32, device=dev)
+    if t_count > 0:
+        _lib.call("tile_raster_fwd", dev, splats_t.data_ptr(), valid.data_ptr(), out.data_ptr(), tfin.data_ptr(),
+                  n_contrib.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset))
     return out, tfin, n_contrib
 
 
@@ -124,22 +115,11 @@ def composite_bwd(
                            ("t_final", t_final, (t_count, p))):
         _lib.check_tensor(name, x, shape, dev)
     _lib.check_tensor("n_contrib", n_contrib, (t_count, p), dev, torch.int32)
-    with _cost.region("tile_raster_bwd") as r:
-        dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
-        if t_count > 0:
-            lib = _lib.library()
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.tile_raster_bwd(
-                    splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(), t_final.data_ptr(),
-                    n_contrib.data_ptr(), dsplats.data_ptr(), t_count, k, tiles_x, tile_h, tile_w, int(row_offset),
-                    stream,
-                )
-            _lib.check("tile_raster_bwd", err)
-            bwd_launch_count.n += 1
-        if r:
-            kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
-            r.report(*_bwd_cost(splats_t, valid, kw), dsplats)
+    dsplats = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
+    if t_count > 0:
+        _lib.call("tile_raster_bwd", dev, splats_t.data_ptr(), valid.data_ptr(), gout.data_ptr(), gtfin.data_ptr(),
+                  t_final.data_ptr(), n_contrib.data_ptr(), dsplats.data_ptr(), t_count, k, tiles_x, tile_h, tile_w,
+                  int(row_offset))
     return dsplats
 
 
@@ -162,16 +142,17 @@ class Composite(torch.autograd.Function):
         kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, row_offset=row_offset)
         ctx.kw = kw
         ctx.trace = steptrace.pin()  # the backward's span joins this step's tree
-        if splats_t.device.type != "cuda":
-            ctx.save_for_backward(splats_t, valid)
-            with _cost.region("tile_raster_fwd") as r:
+        with _cost.region("tile_raster_fwd") as r:
+            if splats_t.device.type == "cuda":
+                out, tfin, n_contrib = composite(splats_t, valid, **kw)
+                res = (tfin, n_contrib)  # the CUDA backward starts from both
+            else:
                 out, tfin = _ref.composite_ref(splats_t, valid, **kw)
-                if r:
-                    r.report(*_fwd_cost(splats_t, valid, kw), out, tfin)
-            return out, tfin
-        out, tfin, n_contrib = composite(splats_t, valid, **kw)
+                res = ()
+            if r:
+                r.report(*_fwd_cost(splats_t, valid, kw), out, tfin, *res)
         if ctx.needs_input_grad[0]:  # serving keeps no residual
-            ctx.save_for_backward(splats_t, valid, tfin, n_contrib)
+            ctx.save_for_backward(splats_t, valid, *res)
         return out, tfin
 
     @staticmethod
@@ -182,13 +163,13 @@ class Composite(torch.autograd.Function):
         with steptrace.record(tc, "raster_bwd", view):
             splats_t, valid, *res = ctx.saved_tensors
             gout, gtfin = gout.contiguous(), gtfin.contiguous()
-            if splats_t.device.type == "cuda":
-                d = composite_bwd(splats_t, valid, gout, gtfin, *res, **ctx.kw)
-            else:
-                with _cost.region("tile_raster_bwd") as r:
+            with _cost.region("tile_raster_bwd") as r:
+                if splats_t.device.type == "cuda":
+                    d = composite_bwd(splats_t, valid, gout, gtfin, *res, **ctx.kw)
+                else:
                     d = _ref.composite_bwd_ref(splats_t, valid, gout, gtfin, **ctx.kw)
-                    if r:
-                        r.report(*_bwd_cost(splats_t, valid, ctx.kw), d)
+                if r:
+                    r.report(*_bwd_cost(splats_t, valid, ctx.kw), d)
         return d, None, None, None, None, None
 
 
@@ -219,17 +200,10 @@ def gather_slab(packed: torch.Tensor, tile_idx: torch.Tensor, order: torch.Tenso
     dev, n = packed.device, packed.shape[0]
     t_count, k = _check_lists(dev, n, tile_idx, order)
     _lib.check_tensor("packed", packed, (n, 11), dev)
-    with _cost.region("slab_gather") as r:
-        slab = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
-        if t_count * k > 0:
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = _lib.library().slab_gather_fwd(packed.data_ptr(), _ptr(order), tile_idx.data_ptr(),
-                                                     slab.data_ptr(), t_count, k, stream)
-            _lib.check("slab_gather_fwd", err)
-            slab_launch_count.n += 1
-        if r:
-            _report_slab_gather(r, tile_idx, order, slab)
+    slab = torch.empty((t_count, 11, k), dtype=torch.float32, device=dev)
+    if t_count * k > 0:
+        _lib.call("slab_gather_fwd", dev, packed.data_ptr(), _ptr(order), tile_idx.data_ptr(), slab.data_ptr(),
+                  t_count, k)
     return slab
 
 
@@ -260,21 +234,13 @@ def gather_slab_bwd(dslab: torch.Tensor, valid: torch.Tensor, tile_idx: torch.Te
     t_count, k = _check_lists(dev, n, tile_idx, order)
     _lib.check_tensor("dslab", dslab, (t_count, 11, k), dev)
     _lib.check_tensor("valid", valid, (t_count, k), dev, torch.bool)
-    with _cost.region("slab_bwd") as r:
-        dpacked = torch.zeros((n, 11), dtype=torch.float32, device=dev)
-        if t_count * k > 0:
-            lib = _lib.library()
-            nbytes = (ctypes.c_longlong * 1)()
-            with torch.cuda.device(dev):
-                _lib.check("slab_bwd_scratch_bytes", lib.slab_bwd_scratch_bytes(t_count * k, n, nbytes))
-                scratch = torch.empty((nbytes[0],), dtype=torch.uint8, device=dev)
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                err = lib.slab_bwd(dslab.data_ptr(), valid.data_ptr(), tile_idx.data_ptr(), _ptr(order),
-                                   dpacked.data_ptr(), scratch.data_ptr(), nbytes[0], t_count, k, n, stream)
-            _lib.check("slab_bwd", err)
-            slab_bwd_launch_count.n += 1
-        if r:
-            _report_slab_bwd(r, valid, n, order is not None, dpacked)
+    dpacked = torch.zeros((n, 11), dtype=torch.float32, device=dev)
+    if t_count * k > 0:
+        nbytes = (ctypes.c_longlong * 1)()
+        _lib.check("slab_bwd_scratch_bytes", _lib.library().slab_bwd_scratch_bytes(t_count * k, n, nbytes))
+        scratch = torch.empty((nbytes[0],), dtype=torch.uint8, device=dev)
+        _lib.call("slab_bwd", dev, dslab.data_ptr(), valid.data_ptr(), tile_idx.data_ptr(), _ptr(order),
+                  dpacked.data_ptr(), scratch.data_ptr(), nbytes[0], t_count, k, n)
     return dpacked
 
 
@@ -290,13 +256,14 @@ class GatherSlab(torch.autograd.Function):
         ctx.n = packed.shape[0]
         if ctx.needs_input_grad[0]:  # serving keeps no residual
             ctx.save_for_backward(tile_idx, valid, order)
-        if packed.device.type != "cuda":
-            with _cost.region("slab_gather") as r:
+        with _cost.region("slab_gather") as r:
+            if packed.device.type == "cuda":
+                slab = gather_slab(packed, tile_idx, order)
+            else:
                 slab = _ref.gather_slab_ref(packed, tile_idx, order)
-                if r:
-                    _report_slab_gather(r, tile_idx, order, slab)
-            return slab
-        return gather_slab(packed, tile_idx, order)
+            if r:
+                _report_slab_gather(r, tile_idx, order, slab)
+        return slab
 
     @staticmethod
     def backward(ctx, dslab):
@@ -304,13 +271,13 @@ class GatherSlab(torch.autograd.Function):
         with steptrace.record(tc, "slab_bwd", view):
             tile_idx, valid, order = ctx.saved_tensors
             dslab = dslab.contiguous()
-            if dslab.device.type == "cuda":
-                d = gather_slab_bwd(dslab, valid, tile_idx, order, ctx.n)
-            else:
-                with _cost.region("slab_bwd") as r:
+            with _cost.region("slab_bwd") as r:
+                if dslab.device.type == "cuda":
+                    d = gather_slab_bwd(dslab, valid, tile_idx, order, ctx.n)
+                else:
                     d = _ref.gather_slab_bwd_ref(dslab, tile_idx, order, ctx.n)
-                    if r:
-                        _report_slab_bwd(r, valid, ctx.n, order is not None, d)
+                if r:
+                    _report_slab_bwd(r, valid, ctx.n, order is not None, d)
         return d, None, None, None
 
 

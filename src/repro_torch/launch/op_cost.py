@@ -41,8 +41,9 @@ Conventions (``hlo_cost``'s where they carry over):
   taken off by a weak-reference finalizer when freed; the peak of their sum
   is the counterpart of ``memory_analysis().temp_size_in_bytes``.
 * kernel regions (``kernels/cost.py`` ``region``): the port's hand kernels
-  are C launchers the dispatcher does not see. Each wrapper opens a region,
-  the counter counts no op inside it, and the wrapper reports its kernel's
+  are C launchers the dispatcher does not see. Each direction of a kernel's
+  autograd Function opens one region around its choice of device, the
+  counter counts no op inside it, and the Function reports its kernel's
   own flops and bytes (the bounds' formulas), its outputs and any counts of
   its own (the input gather's transpose: the valid slots it summed against
   all T*K), under the kernel's name. On the CPU the region hides the plain

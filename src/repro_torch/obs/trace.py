@@ -81,7 +81,7 @@ TRAIN_STAGES = (
     "raster",     # slab gather + compositor forward
     "loss",       # L1 + D-SSIM over the mesh (per step)
     "backward",   # torch.autograd.grad + densify statistics (per step)
-    "vjp",        # the projection's plain-version VJP (autograd thread)
+    "vjp",        # the projection's backward: the CUDA kernel's launch, the plain VJP on the CPU (autograd thread)
     "raster_bwd", # the compositor's backward (autograd thread)
     "slab_bwd",   # the rasterizer input gather's transpose (autograd thread)
     "reduce",     # the data-axis all-reduces (mesh only, per step)

@@ -71,6 +71,29 @@ def test_importing_every_port_module_loads_no_jax():
     assert int(out.stdout.strip()) >= 25
 
 
+KERNEL_DIRECTIONS = ("gsproject", "gsproject_bwd", "tile_raster_fwd", "tile_raster_bwd", "slab_gather", "slab_bwd",
+                     "flash_attention")
+
+
+def test_only_the_kernel_library_enters_a_device_reads_its_stream_or_counts_a_launch():
+    """``kernels/_lib.py`` ``call`` owns a launch's device, stream, error
+    check and count: no other module of the port does any of them."""
+    offenders = [
+        f"{p.relative_to(REPO)}: {m.group(0)}"
+        for p in PORT.rglob("*.py") if p.name != "_lib.py"
+        for m in re.finditer(r"torch\.cuda\.device\(|cuda_stream|launch_count\.n\s*\+=|LaunchCount\(", p.read_text())
+    ]
+    assert not offenders, offenders
+
+
+def test_each_kernel_direction_reports_from_one_cost_region():
+    """One ``_cost.region`` per autograd Function direction, around its
+    choice of device, so each kernel's count is reported once for both."""
+    names = [m.group(1) for p in (PORT / "kernels").rglob("*.py")
+             for m in re.finditer(r"\b_cost\.region\(\s*\"(\w+)\"", p.read_text())]
+    assert sorted(names) == sorted(KERNEL_DIRECTIONS)
+
+
 def test_volume_isosurface_and_cameras_equal_jax_package():
     vj, vt = J_volumes.kingsnake_like(res=20), T_volumes.kingsnake_like(res=20)
     np.testing.assert_array_equal(vt.field, vj.field)

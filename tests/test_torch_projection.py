@@ -188,3 +188,32 @@ def test_kernel_build_names_missing_toolchain(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _lib.find_nvcc()
+
+
+@pytest.mark.parametrize("err", [0, 700])
+def test_lib_call_passes_the_stream_last_and_counts_only_accepted_launches(monkeypatch, err):
+    """``_lib.call`` runs the named launcher with the device's current stream
+    after the arguments; a nonzero code raises, naming the launcher, and
+    leaves the launch count as it was."""
+    import contextlib
+    import types
+
+    seen = []
+
+    def stub_fwd(*args):
+        seen.append(args)
+        return err
+
+    monkeypatch.setattr(_lib, "library", lambda: types.SimpleNamespace(stub_fwd=stub_fwd))
+    monkeypatch.setattr(_lib, "_launches", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(cuda_stream=0xBEEF))
+    count = _lib.launches("stub_fwd")
+    assert _lib.launches("stub_fwd") is count and count.n == 0
+    if err:
+        with pytest.raises(RuntimeError, match=f"stub_fwd: CUDA launch failed with cudaError {err}"):
+            _lib.call("stub_fwd", torch.device("cuda"), 11, 2.5)
+    else:
+        _lib.call("stub_fwd", torch.device("cuda"), 11, 2.5)
+    assert seen == [(11, 2.5, 0xBEEF)]
+    assert count.n == (0 if err else 1)
