@@ -66,10 +66,13 @@ Phases, in order (any failure exits non-zero):
   5. training: 8 ray-marched orbit views, ``GSTrainer.fit`` at batch 4 with
      one densify round and ``evaluate``, with the launch counters zeroed
      just before and read just after (4 per step for each kernel, plus one
-     forward per eval view), each step's loss, step time, a per-stage device
-     breakdown and peak memory; a small train step, and a densify round
-     that clones, splits and prunes followed by one more step, each checked
-     against the port's CPU path;
+     forward per eval view; 5 a step of the Adam kernel), each step's loss,
+     step time, a per-stage device breakdown and peak memory; the Adam
+     kernel (``adam_phase``) on a 4M state at SH degree 0 and on Miranda's
+     18.18M at degree 3, field by field bitwise the plain update, timed
+     beside its byte bound and the plain update; a small train step, and a
+     densify round that clones, splits and prunes followed by one more
+     step, each checked against the port's CPU path;
   5b. ranks: the world-1 NCCL process group drives ``GSTrainer(mesh=...)``
      at the training configuration (the splats' all-gather and its
      reduce-scatter, the loss sums' all-reduce and the fused gradient
@@ -219,8 +222,9 @@ Phases, in order (any failure exits non-zero):
      process (this machine has no JAX), exit 0 against the committed
      baseline; the findings and the CLI's elapsed ms;
   6. the result, printed last (after phase 9): the kernels' JSON line (``launches`` from each
-     kernel's main path: training for the splatting kernels, the LM prefill
-     for attention; the projection at SH degrees 1-3 as ``gsproject_sh1``
+     kernel's main path: training for the splatting kernels and Adam
+     (``adam_update``: ``adam_phase``'s 4M SH-0 row, its 18.18M SH-3 row as
+     ``sh3``), the LM prefill for attention; the projection at SH degrees 1-3 as ``gsproject_sh1``
      to ``_sh3``, each with its own degree's launches from phase 5f;
      ``launches_by_path`` with every path's own counts,
      ``lm_train``, ``moe_prefill``, ``moe_serve_cli`` and ``moe_train`` those
@@ -1923,6 +1927,89 @@ def slab_phase(card: str, label: str, g, res: int, seed: int) -> dict:
                 fwd_library_ms=fwd_lib_ms)
 
 
+ADAM_STATES = (("kingsnake 4M, SH 0", 4_000_768, 1), ("miranda 18.18M, SH 3", 18_180_096, 16))
+
+
+def adam_phase(card: str, dev, seed: int) -> dict:
+    """The Adam kernel (``adam.cu``) on a whole Gaussian state of each of
+    ``ADAM_STATES`` (label, Gaussians, SH coefficients a channel), drawn
+    from the seed: the step count at 7 and the position rate a 0-d device
+    tensor, as the train step passes them. Field by field, the kernel's p',
+    m' and v' bitwise the plain update's (``adam_ref`` on the same card
+    tensors) and its inputs untouched; then the whole update (5 launches)
+    and the SH field's alone timed with CUDA events beside the byte bound
+    (``cost.adam_cost``) and the plain update. Returns label -> the kernel
+    row's numbers (``update_launches``: the launches of one update here, not
+    the training path's)."""
+    from repro_torch.core import gaussians as G
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.adam import ops as adam_ops
+    from repro_torch.kernels.adam.ref import adam_ref
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
+    from repro_torch.optim.adam import AdamState, adam_update
+    from repro_torch.optim.schedules import expon_lr
+
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for label, n, coeffs in ADAM_STATES:
+        shapes = ((n, 3), (n, 3), (n, 4), (n,), (n, coeffs, 3))
+
+        def draw(scale: float, positive: bool = False):
+            xs = [torch.randn(s, device=dev, generator=gen) * scale for s in shapes]
+            return G.GaussianModel(*[x.abs_() if positive else x for x in xs])
+
+        params, grads = draw(1.0), draw(1e-3)
+        state = AdamState(draw(1e-3), draw(1e-6, positive=True), torch.full((), 6, dtype=torch.int32, device=dev))
+        lr_pos = expon_lr(torch.full((), 7_000, dtype=torch.int32, device=dev), lr_init=1.6e-4, lr_final=1.6e-6,
+                          max_steps=30_000) * 2.0
+        lrs = G.GaussianModel(lr_pos, 1e-2, 2e-3, 0.1, 5e-3)
+        c = (state.count + 1).to(torch.float32)
+        bc1 = 1.0 - torch.pow(torch.full((), 0.9, device=dev), c)
+        bc2 = 1.0 - torch.pow(torch.full((), 0.999, device=dev), c)
+        kw = dict(b1=0.9, b2=0.999, eps=1e-15)
+        equal = untouched = True
+        for i, f in enumerate(G.GaussianModel._fields):
+            ins = (params[i], grads[i], state.m[i], state.v[i])
+            before = [x.clone() for x in ins]
+            got = adam_ops.launch(*ins, bc1, bc2, lrs[i], **kw)
+            want = adam_ref(*ins, bc1, bc2, lrs[i], **kw)
+            equal &= all(torch.equal(a, b) for a, b in zip(got, want))
+            untouched &= all(torch.equal(a, b) for a, b in zip(ins, before))
+            del got, want, before
+        log(f"compare adam {label} ({n * (14 + 3 * (coeffs - 1))} floats): p', m', v' bitwise the plain update on "
+            f"every field: {equal}; inputs untouched: {untouched}")
+        if not (equal and untouched):
+            raise SystemExit(f"adam {label}: the kernel is not bitwise the plain update, or wrote an input")
+
+        def plain():
+            return [adam_ref(p, g, m, v, bc1, bc2, lr, **kw)
+                    for p, g, m, v, lr in zip(params, grads, state.m, state.v, lrs)]
+
+        launches = adam_ops.launch_count.n
+        adam_update(grads, state, params, lrs)
+        launches = adam_ops.launch_count.n - launches
+        if launches != 5:
+            raise SystemExit(f"adam {label}: {launches} launches for one update, want 5 (one a field)")
+        ms = cuda_ms(lambda: adam_update(grads, state, params, lrs), 10, f"adam {label}")
+        plain_ms = cuda_ms(plain, 5, f"plain adam {label}")
+        sh = (params.sh, grads.sh, state.m.sh, state.v.sh, bc1, bc2, lrs.sh)
+        sh_ms = cuda_ms(lambda: adam_ops.launch(*sh, **kw), 10, f"adam SH field {label}")
+        sh_plain_ms = cuda_ms(lambda: adam_ref(*sh, **kw), 5, f"plain adam SH field {label}")
+        floats = sum(x.numel() for x in params)
+        ops, nbytes = kcost.adam_cost(floats)
+        bound, bound_by = kcost.bound_ms(ops, nbytes, PEAK_FLOPS_FP32, HBM_BW)
+        sh_bound, _ = kcost.bound_ms(*kcost.adam_cost(params.sh.numel()), PEAK_FLOPS_FP32, HBM_BW)
+        log(f"time adam {label} ({card}): {floats} floats, {launches} launches; kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}; {nbytes} B), kernel / bound {ms / bound:.3f}, "
+            f"{nbytes / ms / 1e9:.3f} TB/s; plain update {plain_ms:.4f} ms, {plain_ms / ms:.2f}x the kernel; "
+            f"SH field alone: kernel {sh_ms:.4f} ms, bound {sh_bound:.4f} ms, plain {sh_plain_ms:.4f} ms")
+        rows[label] = dict(n=n, floats=floats, update_launches=launches, ms=ms, bound_ms=bound, bound_by=bound_by,
+                           plain_ms=plain_ms, sh_ms=sh_ms, sh_bound_ms=sh_bound, sh_plain_ms=sh_plain_ms)
+        del params, grads, state, lrs, sh
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- phase 3: the projection's backward
 def gsproject_bwd_phase(card: str, models: dict, cam, seed: int) -> dict:
     """The projection's backward kernel at the main path's size, for each SH
@@ -2717,6 +2804,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _lib
     from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.adam import ops as adam_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.gsproject import ops as gp_ops
     from repro_torch.kernels.gsproject.ref import project_ref
@@ -3066,7 +3154,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     gp_ops.launch_count.n = tr_ops.launch_count.n = tr_ops.bwd_launch_count.n = fa_ops.launch_count.n = 0
-    gp_ops.bwd_launch_count.n = tr_ops.slab_bwd_launch_count.n = 0
+    gp_ops.bwd_launch_count.n = tr_ops.slab_bwd_launch_count.n = adam_ops.launch_count.n = 0
     losses = trainer.fit(data, steps=args.train_steps, log_every=1)
     metrics = trainer.evaluate(data, range(args.eval_views))
     torch.cuda.synchronize()
@@ -3074,6 +3162,7 @@ def main(argv=None) -> int:
                       fa_ops.launch_count.n)
     train_bwd_launches = gp_ops.bwd_launch_count.n
     train_slab_bwd_launches = tr_ops.slab_bwd_launch_count.n
+    train_adam_launches = adam_ops.launch_count.n
     train_peak = torch.cuda.max_memory_allocated(dev)
     step_ms = trainer.step_ms_log
     log(f"train {name} ({card}): {trainer.state.params.n} Gaussians after {args.train_steps} steps at batch "
@@ -3089,12 +3178,14 @@ def main(argv=None) -> int:
     log(f"launches on the training path: gsproject {train_launches[0]}, tile_raster_fwd {train_launches[1]}, "
         f"tile_raster_bwd {train_launches[2]}, flash_attention {train_launches[3]} (want {want}: 4 per step each, "
         f"plus one forward per eval view, and no attention); gsproject_bwd {train_bwd_launches}, slab_bwd "
-        f"{train_slab_bwd_launches} (want {4 * args.train_steps} each: 4 per step)")
+        f"{train_slab_bwd_launches} (want {4 * args.train_steps} each: 4 per step); adam_update "
+        f"{train_adam_launches} (want {5 * args.train_steps}: one a field a step)")
     if not np.isfinite(losses).all() or len(losses) != args.train_steps:
         raise SystemExit(f"training losses not finite: {losses}")
-    if train_launches != want or not train_bwd_launches == train_slab_bwd_launches == 4 * args.train_steps:
-        raise SystemExit(f"training path launches {train_launches}, gsproject_bwd {train_bwd_launches}, want {want}, "
-                         f"{4 * args.train_steps}")
+    if train_launches != want or not train_bwd_launches == train_slab_bwd_launches == 4 * args.train_steps \
+            or train_adam_launches != 5 * args.train_steps:
+        raise SystemExit(f"training path launches {train_launches}, gsproject_bwd {train_bwd_launches}, adam_update "
+                         f"{train_adam_launches}, want {want}, {4 * args.train_steps}, {5 * args.train_steps}")
     if len(trainer.densify_reports) != 1:
         raise SystemExit(f"want one densify round, got {trainer.densify_reports}")
 
@@ -3139,7 +3230,9 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.3f} ms; whole step {whole:.3f} ms")
     profile_step(lambda: trainer.step_fn(trainer.state, cams_b, gt_b), float(np.median(step_ms)))
-    del packed, pk_leaf, pk_sorted, img, imgs, leaves, gpacked, step_grads, trainer
+    del packed, pk_leaf, pk_sorted, img, imgs, leaves, gpacked, step_grads, trainer, params
+    torch.cuda.empty_cache()
+    adam_rows = adam_phase(card, dev, args.seed)
 
     # a small train step on the card against the same step on the CPU
     small = host._replace(**{f: getattr(host, f)[: 20000] for f in host._fields})
@@ -3274,6 +3367,9 @@ def main(argv=None) -> int:
          "replaces": None, "launches": train_slab_bwd_launches, "launches_by_path": {"train": train_slab_bwd_launches},
          **slab_rows["kingsnake_512"], "miranda_512": slab_rows["miranda_512"],
          "kingsnake_2048": slab_rows["kingsnake_2048"]},
+        {"name": "adam_update", "route": "cuda", "source": "src/repro_torch/kernels/adam/adam.cu",
+         "replaces": None, "launches": train_adam_launches, "launches_by_path": {"train": train_adam_launches},
+         **adam_rows[ADAM_STATES[0][0]], "sh3": adam_rows[ADAM_STATES[1][0]], "library_ms": None},
         {**lm_res["entry"], "launches_by_path": by_path(3, "flash_attention"), "family_shapes": fam_rows},
     ]
     # the projection at SH degrees 1-3: each degree's launches from its own

@@ -40,6 +40,7 @@ SOURCES = (
     _KERNELS_DIR / "tile_raster" / "tile_raster.cu",
     _KERNELS_DIR / "tile_raster" / "slab_gather.cu",
     _KERNELS_DIR / "flash_attention" / "flash_attention.cu",
+    _KERNELS_DIR / "adam" / "adam.cu",
 )
 # src/repro_torch/kernels -> the checkout root
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -89,6 +90,10 @@ SIGNATURES = {
     # heads, kv_heads, head_dim, is_bf16, causal, window (< 0: none),
     # q_offset, scale, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # p, g, m, v, p_out, m_out, v_out (n floats each), n, bc1, bc2, lr (0-d
+    # device tensors; lr null: the float lr), lr, b1, 1 - b1, b2, 1 - b2,
+    # eps, stream
+    "adam_update": (_P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _F, _F, _F, _F, _F, _F, _P),
 }
 
 

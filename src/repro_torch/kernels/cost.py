@@ -7,8 +7,9 @@ the kernel's function needs on these inputs, as the bounds do: each input
 byte read once, each output byte written once, and the operations the
 kernel's source does per unit of work.
 
-Each direction of a kernel's autograd Function reports that work to the
-active counter from one region, around its one choice of device:
+Each direction of a kernel's autograd Function (and ``optim/adam.py``
+``adam_update``, for each field's update) reports that work to the active
+counter from one region, around its one choice of device:
 
     with cost.region("gsproject") as r:
         out = launch(...) if cuda else project_ref(...)  # the kernel or the plain version
@@ -54,6 +55,12 @@ GSPROJECT_BWD_OPS_PER_GAUSSIAN = 579
 # direction's, the direction's own backward (band 1 only) and 3 products a
 # coefficient for the SH gradient
 GSPROJECT_BWD_SH_BAND_OPS = ((1, 35 + 58), (4, 45 + 93), (9, 70 + 177))
+# Adam (adam/adam.cu), per float of a field: m' (2 products, a sum), v' (3
+# products, a sum), the two bias corrections' divisions, sqrt, + eps, the
+# rate's product, the step's division and the subtraction; p, g, m, v read
+# and p', m', v' written
+ADAM_OPS_PER_FLOAT = 14
+ADAM_BYTES_PER_FLOAT = 7 * 4
 RASTER_OPS_PER_EVAL = 24          # dx, dy, power, clamp, exp, alpha, tests, T update, 3 color FMAs
 # backward, per composited (pixel, splat): the alpha recomputed (15), T by
 # division, w, dw and the color grads (11), d(alpha) and B (5), d(power) and
@@ -165,6 +172,11 @@ def slab_bwd_cost(n_valid: int, slots: int, n: int, ordered: bool) -> tuple[int,
     9 gradient floats read, the (n, 11) gradient written."""
     return (n_valid * RASTER_FIELDS_READ,
             slots + n_valid * (4 + 8 * ordered + RASTER_FIELDS_READ * 4) + n * SPLAT_FIELDS * 4)
+
+
+def adam_cost(n: int) -> tuple[int, int]:
+    """(operations, bytes) of one Adam step over a field of ``n`` floats."""
+    return n * ADAM_OPS_PER_FLOAT, n * ADAM_BYTES_PER_FLOAT
 
 
 def attention_pairs(s: int, skv: int, causal: bool, window, q_offset: int) -> int:

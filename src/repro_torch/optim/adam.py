@@ -4,9 +4,13 @@ The JAX package's own Adam (``optim/adam.py``), not ``torch.optim.Adam``:
 eps 1e-15, a learning rate per parameter field, and the bias correction
 computed in float32 from the int32 step count, as JAX computes it. The
 update is functional, as in JAX: it returns new tensors and leaves its
-inputs alone. The SH field's update runs in the train step's stage
-``adam_sh`` (``obs/steptrace.py``), nested in ``adam``: the colour
-coefficients are most of a Gaussian's floats at higher SH degrees.
+inputs alone. Each field's update is one launch of ``kernels/adam/adam.cu``
+on CUDA tensors and the plain version (``kernels/adam/ref.py``) on the CPU,
+chosen inside the field's operation-counter region ``adam``, which reports
+``kernels/cost.py`` ``adam_cost`` for either. The SH field's update runs in
+the train step's stage ``adam_sh`` (``obs/steptrace.py``), nested in
+``adam``: the colour coefficients are most of a Gaussian's floats at higher
+SH degrees.
 """
 from __future__ import annotations
 
@@ -15,6 +19,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import cost as _cost
+from repro_torch.kernels.adam import ops as adam_ops
+from repro_torch.kernels.adam.ref import adam_ref
 from repro_torch.obs import steptrace
 
 _NO_STAGE = contextlib.nullcontext()
@@ -59,13 +66,13 @@ def adam_update(
     new_m, new_v, new_p = [], [], []
     tc = steptrace.current()
     for f, g, m, v, p, lr in zip(params._fields, grads, state.m, state.v, params, lr_tree):
-        with steptrace.record(tc, "adam_sh") if f == "sh" else _NO_STAGE:
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mhat = m / bc1
-            vhat = v / bc2
-            new_m.append(m)
-            new_v.append(v)
-            new_p.append(p - lr * mhat / (torch.sqrt(vhat) + eps))
+        with steptrace.record(tc, "adam_sh") if f == "sh" else _NO_STAGE, _cost.region("adam") as r:
+            update = adam_ops.launch if p.device.type == "cuda" else adam_ref
+            p, m, v = update(p, g, m, v, bc1, bc2, lr, b1=b1, b2=b2, eps=eps)
+            if r:
+                r.report(*_cost.adam_cost(p.numel()), p, m, v)
+        new_p.append(p)
+        new_m.append(m)
+        new_v.append(v)
     kind = type(params)
     return kind(*new_p), AdamState(kind(*new_m), kind(*new_v), count)

@@ -770,6 +770,100 @@ def test_trainer_step_at_sh_degree_3_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(g_k[:, 9:], g_c[:, 9:], atol=2e-5 * np.abs(g_c[:, 9:]).max(), rtol=2e-4)
 
 
+def _adam_state(dev, n: int, coeffs: int, count: int, seed: int):
+    """Parameters, gradients and Adam state (after ``count - 1`` steps) of
+    ``n`` Gaussians with ``coeffs`` SH coefficients a channel, from a seed."""
+    from repro_torch.optim.adam import AdamState
+
+    r = np.random.default_rng(seed)
+    shapes = ((n, 3), (n, 3), (n, 4), (n,), (n, coeffs, 3))
+
+    def draw(scale, positive=False):
+        return G.GaussianModel(*[torch.tensor((np.abs if positive else np.asarray)(r.normal(0, scale, s)),
+                                              dtype=torch.float32, device=dev) for s in shapes])
+
+    state = AdamState(draw(1e-3), draw(1e-6, positive=True), torch.full((), count - 1, dtype=torch.int32, device=dev))
+    return draw(1.0), draw(1e-3), state
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("lr_kind", ["float", "schedule"])
+@pytest.mark.parametrize("count", [1, 7])
+@pytest.mark.parametrize("n,coeffs", [(1003, 1), (100_003, 16)])
+def test_adam_kernel_is_bitwise_the_plain_update(cuda_device, n, coeffs, count, lr_kind, packed):
+    """``adam_update`` on the card, one ``adam.cu`` launch a field, against
+    the plain update (``adam_ref``) on the same card tensors, field by
+    field: p', m' and v' bitwise. The SH-0 fields and an (N, 16, 3) SH
+    field, N not a multiple of 4 (the last block only part full); steps 1
+    and 7; the rates as floats or as the schedule's 0-d device tensor; the
+    gradients as tensors of their own or as ``pack_pytree``'s split views
+    of one vector, whose offsets are not 16-byte aligned.
+    The inputs stay bitwise untouched, and each call launches 5 times."""
+    from repro_torch.kernels.adam import ops as adam_ops
+    from repro_torch.kernels.adam.ref import adam_ref
+    from repro_torch.optim.adam import adam_update
+    from repro_torch.optim.schedules import expon_lr
+    from repro_torch.utils.tree import pack_pytree
+
+    params, grads, state = _adam_state(cuda_device, n, coeffs, count, seed=count + coeffs)
+    if packed:
+        flat, unpack = pack_pytree(grads)
+        grads = unpack(flat)
+        assert grads.log_scales.data_ptr() % 16 and grads.sh.data_ptr() % 16
+    lr_pos = expon_lr(torch.full((), count * 100, dtype=torch.int32, device=cuda_device), lr_init=1.6e-4,
+                      lr_final=1.6e-6, max_steps=30_000)
+    rates = (2.0, 1e-2, 2e-3, 0.1, 5e-3)
+    lrs = G.GaussianModel(*(rates if lr_kind == "float" else [lr_pos * x for x in rates]))
+    inputs = [params, grads, state.m, state.v, [state.count], [x for x in lrs if torch.is_tensor(x)]]
+    before = [[x.clone() for x in tree] for tree in inputs]
+    launches = adam_ops.launch_count.n
+    new_p, new_state = adam_update(grads, state, params, lrs)
+    torch.cuda.synchronize()
+    assert adam_ops.launch_count.n == launches + 5
+    for tree, was in zip(inputs, before):
+        assert all(torch.equal(a, b) for a, b in zip(tree, was))
+    assert int(new_state.count) == count
+    c = torch.full((), count, dtype=torch.float32, device=cuda_device)
+    bc1 = 1.0 - torch.pow(torch.full((), 0.9, dtype=torch.float32, device=cuda_device), c)
+    bc2 = 1.0 - torch.pow(torch.full((), 0.999, dtype=torch.float32, device=cuda_device), c)
+    for i, f in enumerate(G.GaussianModel._fields):
+        want = adam_ref(params[i], grads[i], state.m[i], state.v[i], bc1, bc2, lrs[i], b1=0.9, b2=0.999, eps=1e-15)
+        for name, got, w in zip(("p", "m", "v"), (new_p[i], new_state.m[i], new_state.v[i]), want):
+            assert got.shape == w.shape and torch.equal(got, w), (f, name, int((got != w).sum()))
+
+
+def test_trainer_two_sh3_steps_with_the_adam_kernel_equal_the_plain_update(cuda_device, monkeypatch):
+    """Two ``GSTrainer`` steps at SH degree 3 on the card, once through the
+    Adam kernel (10 launches) and once with the plain update in its place:
+    the same losses and the same state, bitwise: parameters, moments,
+    count and densify statistics."""
+    from repro_torch.kernels.adam import ops as adam_ops
+    from repro_torch.kernels.adam.ref import adam_ref
+    from repro_torch.launch.train import GSTrainer
+
+    host = _scene(3000, seed=11, scale=0.03)
+    r = np.random.default_rng(11)
+    host = host._replace(sh=np.concatenate([host.sh, 0.2 * r.normal(0, 1, (3000, 15, 3))], axis=1).astype(np.float32))
+    cfg = GSConfig(img_h=64, img_w=64, k_per_tile=64, batch_size=2, bg=(0.1, 0.2, 0.3), sh_degree=3)
+    batch = _SameBatch(stack_cameras([_cam(64, 64), _cam(64, 64, dist=2.5)]),
+                       torch.tensor(r.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32), device=cuda_device))
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(adam_ops, "launch", adam_ref)
+        tr = GSTrainer(cfg, params=G.from_numpy(host, cuda_device), device=cuda_device, verbose=False)
+        launches = adam_ops.launch_count.n
+        losses = tr.fit(batch, steps=2, densify=False)
+        torch.cuda.synchronize()
+        assert adam_ops.launch_count.n == launches + (0 if plain else 10)
+        st = tr.state
+        runs.append((losses, [*st.params, *st.adam.m, *st.adam.v, st.adam.count, st.step, st.grad2d_accum,
+                              st.vis_count, st.max_radii]))
+    (l_k, s_k), (l_p, s_p) = runs
+    assert l_k == l_p and len(l_k) == 2
+    assert all(torch.equal(a, b) for a, b in zip(s_k, s_p))
+
+
 @pytest.fixture(scope="module")
 def nccl_world_one(tmp_path_factory):
     """A world-1 NCCL process group in this process (through a file store)

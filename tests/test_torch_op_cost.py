@@ -291,6 +291,33 @@ def test_gsproject_cost_counts_the_sh_bands():
                                                            "bytes": float(g.n * nbytes)}}
 
 
+def test_adam_region_on_the_cpu_reports_the_formula():
+    """``adam_update`` on the CPU under the counter: the ``adam`` region
+    reports ``kcost.adam_cost`` (14 operations and 28 bytes a float) once a
+    field and hides the plain update's ops; the update is the one made
+    without a counter, bitwise. At the SH-3 cell's size the byte bound is
+    7.3 ms for the SH field and 9.0 ms for the whole state on an H100."""
+    from repro_torch.core import gaussians as G
+    from repro_torch.optim.adam import adam_init, adam_update
+
+    assert kcost.adam_cost(1) == (14, 28)
+    assert kcost.adam_cost(18_180_096 * 48)[1] / 3.35e12 * 1e3 == pytest.approx(7.29, abs=0.01)
+    assert kcost.adam_cost(18_180_096 * 59)[1] / 3.35e12 * 1e3 == pytest.approx(8.97, abs=0.01)
+    r = np.random.default_rng(4)
+    params = G.GaussianModel(*[torch.tensor(r.normal(0, 1, s), dtype=torch.float32)
+                               for s in ((301, 3), (301, 3), (301, 4), (301,), (301, 16, 3))])
+    grads = G.GaussianModel(*[torch.tensor(r.normal(0, 1e-3, x.shape), dtype=torch.float32) for x in params])
+    lrs = G.GaussianModel(torch.full((), 3.2e-4), 1e-2, 2e-3, 0.1, 5e-3)
+    with OpCost() as counter:
+        got = adam_update(grads, adam_init(params), params, lrs)
+    want = adam_update(grads, adam_init(params), params, lrs)
+    floats = 301 * (3 + 3 + 4 + 1 + 48)
+    by_op = counter.result()["by_op"]
+    assert by_op["adam"] == {"count": 5, "flops": float(14 * floats), "bytes": float(28 * floats)}
+    assert "sqrt" not in by_op and "div" not in by_op  # only the bias corrections' 0-d ops run outside
+    assert all(torch.equal(a, b) for a, b in zip([*got[0], *got[1].m, *got[1].v], [*want[0], *want[1].m, *want[1].v]))
+
+
 def test_gsproject_backward_region_on_the_cpu_reports_the_formula():
     """A CPU backward of ``project_packed`` under the counter: the
     ``gsproject_bwd`` region reports the backward kernel's formula once and

@@ -192,6 +192,62 @@ def test_adam_and_schedules_match_jax():
     assert TSch.grendel_lr_scale(4) == JSch.grendel_lr_scale(4) == 2.0
 
 
+def _adam_inputs(count: int, sh_coeffs: int, seed: int):
+    """A state of 1,003 Gaussians (not a multiple of 4) at ``count`` steps,
+    gradients, and the trainer's rates: the position rate a 0-d tensor from
+    the schedule, the others floats."""
+    r = np.random.default_rng(seed)
+    shapes = [(1003, 3), (1003, 3), (1003, 4), (1003,), (1003, sh_coeffs, 3)]
+
+    def draw(scale, positive=False):
+        xs = [torch.tensor((np.abs if positive else np.asarray)(r.normal(0, scale, s)), dtype=torch.float32)
+              for s in shapes]
+        return TG.GaussianModel(*xs)
+
+    params, grads = draw(1.0), draw(1e-3)
+    state = TA.AdamState(draw(1e-3), draw(1e-6, positive=True), torch.tensor(count, dtype=torch.int32))
+    lr = TSch.expon_lr(torch.tensor(count * 100, dtype=torch.int32), lr_init=1.6e-4, lr_final=1.6e-6,
+                       max_steps=30_000)
+    return params, grads, state, TG.GaussianModel(lr * 2.0, 1e-2, 2e-3, 0.1, 5e-3)
+
+
+@pytest.mark.parametrize("count,sh_coeffs", [(0, 1), (6, 16)])
+def test_adam_update_on_the_cpu_is_the_plain_update_and_leaves_its_inputs_untouched(count, sh_coeffs):
+    """The CPU runs each field's plain update (``kernels/adam/ref.py``), never
+    the kernel: every field bitwise ``adam_ref`` on the same bias
+    corrections, the count one up, no launch counted, and the parameters,
+    gradients, moments, count and rates as they were."""
+    from repro_torch.kernels.adam import ops as adam_ops
+    from repro_torch.kernels.adam.ref import adam_ref
+
+    params, grads, state, lrs = _adam_inputs(count, sh_coeffs, seed=count)
+    inputs = [params, grads, state.m, state.v, [state.count], [lrs.means]]
+    before = [[x.clone() for x in tree] for tree in inputs]
+    launches = adam_ops.launch_count.n
+    new_p, new_state = TA.adam_update(grads, state, params, lrs)
+    assert adam_ops.launch_count.n == launches
+    for tree, was in zip(inputs, before):
+        assert all(torch.equal(a, b) for a, b in zip(tree, was))
+    assert int(new_state.count) == count + 1
+    c = torch.tensor(count + 1, dtype=torch.int32).to(torch.float32)
+    bc1, bc2 = 1.0 - torch.pow(torch.tensor(0.9), c), 1.0 - torch.pow(torch.tensor(0.999), c)
+    for i, f in enumerate(TG.GaussianModel._fields):
+        want = adam_ref(params[i], grads[i], state.m[i], state.v[i], bc1, bc2, lrs[i], b1=0.9, b2=0.999, eps=1e-15)
+        for got, w in zip((new_p[i], new_state.m[i], new_state.v[i]), want):
+            assert torch.equal(got, w), f
+            assert all(got.data_ptr() != x.data_ptr() for tree in inputs for x in tree)  # fresh tensors
+
+
+def test_adam_kernel_refuses_cpu_tensors():
+    from repro_torch.kernels.adam import ops as adam_ops
+
+    params, grads, state, lrs = _adam_inputs(0, 1, seed=0)
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA"):
+        adam_ops.launch(params.means, grads.means, state.m.means, state.v.means, one, one, lrs.means,
+                        b1=0.9, b2=0.999, eps=1e-15)
+
+
 # ---------------------------------------------------------------- train step
 
 
