@@ -7,7 +7,7 @@ After ``run.py``'s set-up it trains on without the window's snapshot, in
 blocks of ``--block-steps`` steps through ``GSTrainer.fit``, and records
 for each block the steps' wall ms (mean, p50, p90) and the live Gaussians'
 mean scale and opacity; 3 steps under ``torch.profiler`` before the first
-block and after the last give ``gather_bwd_ms`` and ``proj_bwd_ms``. Then
+block and after the last give ``slab_bwd_ms`` and ``proj_bwd_ms``. Then
 it restores the snapshot and runs one block again as the window runs it
 (stretches of one epoch, each from the snapshot), with 3 profiled steps
 from the snapshot. One JSON object goes to ``--out`` and standard output.
@@ -33,12 +33,13 @@ def _profiled(tr, feed, steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from gsbench.profread import node_device_ms
+    from gsbench.rangeread import range_device_ms
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         tr.fit(feed, steps=steps, densify=False, log_every=10**9)
         torch.cuda.synchronize()
-    return {"gather_bwd_ms": node_device_ms(prof, "IndexBackward") / steps,
+    return {"slab_bwd_ms": (range_device_ms(prof, "gs.slab_bwd") or 0.0) / steps,
             "proj_bwd_ms": node_device_ms(prof, "ProjectBackward") / steps,
             "step_ms": list(tr.step_ms_log)}
 

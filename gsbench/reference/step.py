@@ -15,7 +15,9 @@ It follows the configuration's semantics from the benchmark's own inputs
 - front-to-back compositing with the alpha clamp, the 1/255 skip and the
   1e-4 transmittance stop, its gradient through autograd with the
   gradient masks of the configuration's compositor (none through the
-  clamp, none where the exponent is not negative);
+  clamp, none where the exponent is not negative), in blocks of whole tile
+  rows (``BLOCK_TILES``): the image first without a graph, then each
+  block again with its graph and its share of the image's gradient;
 - (1 - lambda) L1 + lambda D-SSIM over the batch, the 11 x 11 Gaussian
   window applied separably with zero padding;
 - Adam with eps 1e-15, a learning rate per field, the exponential decay of
@@ -35,6 +37,9 @@ import torch.nn.functional as F
 
 FIELDS = ("means", "log_scales", "quats", "opacity_logit", "sh")
 CHUNK = 1 << 21  # Gaussians a projection pass takes at once (bounds the temporaries)
+# tiles a compositing pass takes at once: its saved (tiles, K, 256) tensors
+# hold ~3.5 GB at K 256, where a 2048-px frame's 16,384 tiles would hold ~57 GB
+BLOCK_TILES = 1024
 SH_C0 = 0.28209479177387814
 
 
@@ -182,12 +187,14 @@ def tile_lists(ps: torch.Tensor, img_h: int, img_w: int, gs: dict, c: dict) -> t
     return lists.reshape(nby, nbx, by, bx, k).permute(0, 2, 1, 3, 4).reshape(ty * tx, k)
 
 
-def composite(ps: torch.Tensor, lists: torch.Tensor, img_h: int, img_w: int, gs: dict, c: dict,
-              ar: _Arith) -> torch.Tensor:
-    """(H, W, 3) image of depth-sorted splats ``ps`` over the tiles' lists."""
+def composite(ps: torch.Tensor, lists: torch.Tensor, img_w: int, gs: dict, c: dict, ar: _Arith, *,
+              t0: int = 0) -> torch.Tensor:
+    """(rows, W, 3) band of the image of depth-sorted splats ``ps`` over the
+    lists of whole tile rows, the first of them tile ``t0`` (row-major); the
+    whole (H, W, 3) image when ``lists`` holds every tile."""
     th, tw = gs["tile_h"], gs["tile_w"]
     tx = img_w // tw
-    t = torch.arange(lists.shape[0], device=ps.device)
+    t = torch.arange(t0, t0 + lists.shape[0], device=ps.device)
     yy, xx = torch.meshgrid(torch.arange(th, device=ps.device), torch.arange(tw, device=ps.device), indexing="ij")
     px = ((t % tx)[:, None] * tw + xx.reshape(1, -1)).to(torch.float32) + 0.5   # (T, P)
     py = ((t // tx)[:, None] * th + yy.reshape(1, -1)).to(torch.float32) + 0.5
@@ -208,7 +215,17 @@ def composite(ps: torch.Tensor, lists: torch.Tensor, img_h: int, img_w: int, gs:
     rgb = ar.mm(w.transpose(1, 2), sp[..., 6:9])                                  # (T, P, 3)
     bg = torch.tensor(gs["bg"], dtype=torch.float32, device=ps.device)
     rgb = rgb + t_final[..., None] * bg
-    return rgb.reshape(img_h // th, tx, th, tw, 3).permute(0, 2, 1, 3, 4).reshape(img_h, img_w, 3)
+    rows = lists.shape[0] // tx
+    return rgb.reshape(rows, tx, th, tw, 3).permute(0, 2, 1, 3, 4).reshape(rows * th, img_w, 3)
+
+
+def tile_blocks(img_h: int, img_w: int, gs: dict) -> list[tuple[int, int]]:
+    """(first tile, tile count) of each block that one compositing pass
+    takes: as many whole tile rows as ``BLOCK_TILES`` tiles hold, at least
+    one, so a frame of ``BLOCK_TILES`` tiles or fewer is one block."""
+    tx, ty = img_w // gs["tile_w"], img_h // gs["tile_h"]
+    rows = max(1, min(ty, BLOCK_TILES // tx))
+    return [(r * tx, min(rows, ty - r) * tx) for r in range(0, ty, rows)]
 
 
 def ssim_l1_sums(img: torch.Tensor, gt: torch.Tensor, ar: _Arith, size: int = 11, sigma: float = 1.5):
@@ -242,10 +259,23 @@ def view_grads(p: dict, cam: dict, gt: torch.Tensor, gs: dict, c: dict, ar: _Ari
     order = torch.sort(packed[:, 9], stable=True).indices
     ps = packed[order].requires_grad_()
     lists = tile_lists(ps.detach(), img_h, img_w, gs, c)
-    img = composite(ps, lists, img_h, img_w, gs, c, ar)
+    blocks = tile_blocks(img_h, img_w, gs)
+    # the image without a graph, then d(loss)/d(image); each block's
+    # compositing again with its graph, its share of d(loss)/d(ps) taken
+    # before the next block's is built (the tiles composite independently)
+    with torch.no_grad():
+        img = torch.cat([composite(ps, lists[t0:t0 + n], img_w, gs, c, ar, t0=t0) for t0, n in blocks])
+    img.requires_grad_()
     ssim_s, l1_s = ssim_l1_sums(img, gt, ar)
     lam = gs["lambda_dssim"]
-    (g_sorted,) = torch.autograd.grad(scale * ((1 - lam) * l1_s - 0.5 * lam * ssim_s), ps)
+    (d_img,) = torch.autograd.grad(scale * ((1 - lam) * l1_s - 0.5 * lam * ssim_s), img)
+    g_sorted = None
+    th, tx = gs["tile_h"], img_w // gs["tile_w"]
+    for t0, n in blocks:
+        band = composite(ps, lists[t0:t0 + n], img_w, gs, c, ar, t0=t0)
+        r0 = t0 // tx * th
+        (g,) = torch.autograd.grad(band, ps, d_img[r0:r0 + band.shape[0]])
+        g_sorted = g if g_sorted is None else g_sorted + g
     g_packed = torch.empty_like(g_sorted)
     g_packed[order] = g_sorted
     n = packed.shape[0]

@@ -1,7 +1,7 @@
 """A run with the timed path broken underneath comes out not correct: once
 for each fault a cell can have (``gsbench/faults.py``), with the look for
-a chip skipped and everything else of a run driven on the CPU, the
-four-chip cell on four gloo ranks."""
+a chip skipped and everything else of a run driven on the CPU, in each
+one-chip cell, and the four-chip cell on four gloo ranks."""
 import json
 import os
 import tempfile
@@ -9,10 +9,14 @@ import time
 
 import pytest
 
+from conftest import BLOCKED
+
 from gsbench.harness import run_rank
+from gsbench.reference import step as RS
 
 FAULTS_ONE = ["unchanged", "half_batch", "altered"]
 FAULTS_MESH = ["unchanged", "half_batch", "altered", "no_exchange"]
+ONE_CHIP = ["ks4m-train-512", "mir18m-sh3-train-512", "ks4m-train-2048"]
 
 
 def _run_mesh(cell, fault):
@@ -30,8 +34,10 @@ def _run_mesh(cell, fault):
 
 
 @pytest.mark.parametrize("fault", [None] + FAULTS_ONE)
-def test_one_chip_cell_catches_each_fault(tiny, fault):
-    cell = tiny("ks4m-train-512")
+@pytest.mark.parametrize("name", ONE_CHIP)
+def test_one_chip_cell_catches_each_fault(tiny, monkeypatch, name, fault):
+    monkeypatch.setattr(RS, "BLOCK_TILES", BLOCKED)
+    cell = tiny(name)
     r = run_rank(0, 1, dict(cell=cell, seed=3_000_000_019, seconds=0.3, trace=False, device="cpu", t0=time.time(),
                             cpu_threads=2, fault=fault))
     assert r["correct"] is (fault is None), r["compared"]

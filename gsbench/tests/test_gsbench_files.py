@@ -55,3 +55,13 @@ def test_the_command_and_paths():
     assert bench["command"] == ["python3", "gsbench/run.py"]
     assert bench["paths"] == ["gsbench"]
     assert {m["name"] for m in bench["end_to_end"]} == {"step_ms", "step_ms_p90", "peak_mem_gb", "setup_s"}
+
+
+def test_every_per_layer_metric_lists_the_cells_its_reader_reads():
+    """Each reader reads in every cell, but the collectives' only where
+    there are several chips."""
+    bench = _bench()
+    cells = [w["name"] for w in bench["workloads"]]
+    mesh = [w["name"] for w in bench["workloads"] if w["chips"] > 1]
+    for m in bench["per_layer"]:
+        assert m["workloads"] == (mesh if m["name"] == "nccl_ms" else cells), m["name"]

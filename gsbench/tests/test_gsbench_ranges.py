@@ -1,9 +1,10 @@
 """The readers of the program's stage spans and ranges (``vjp_dispatch_ms``,
-``bin_ms``, ``adam_ms``, ``vjp_idle_ms``; ``gsbench/rangeread.py``): on a
-CPU profile of a tiny cell's step, ranges are found by their whole name; on
-a hand-made device trace the device times and the idle split come out as
-laid, the idle by range and outside every range summing to the whole idle;
-on a trace and spans without the program's stages every reader gives None."""
+``bin_ms``, ``adam_ms``, ``vjp_idle_ms``, ``loss_ms``;
+``gsbench/rangeread.py``): on a CPU profile of a tiny cell's step, ranges
+are found by their whole name; on a hand-made device trace the device
+times and the idle split come out as laid, the idle by range and outside
+every range summing to the whole idle; on a trace and spans without the
+program's stages every reader gives None."""
 import time
 import types
 
@@ -128,3 +129,33 @@ def test_a_program_without_the_stages_reads_nothing():
     ctx = types.SimpleNamespace(prof=prof, steps=5, spans=[("batch", 0.0, 1.0), ("dispatch", 1.0, 2.0)])
     readers = metric_readers()
     assert {name: readers[name].read(ctx) for name in NEW} == dict.fromkeys(NEW)
+
+
+def test_loss_ms_reads_the_loss_range_and_the_windows_transpose():
+    """Two steps: each a ``gs.loss`` range (3 us of kernels) and the
+    autograd node of the SSIM window's transpose, its evaluate_function
+    event holding the ``ConvolutionBackward0`` op (2 us, counted once)."""
+    ev = []
+    for base in (0.0, 1000.0):
+        ev.append(_ev("gs.loss", base + 0, base + 100, device_ms=0.003))
+        node = _ev("autograd::engine::evaluate_function: ConvolutionBackward0", base + 200, base + 300,
+                   device_ms=0.002)
+        ev += [node, _ev("ConvolutionBackward0", base + 210, base + 290, parent=node, device_ms=0.002)]
+        ev.append(_ev("autograd::engine::evaluate_function: MulBackward0", base + 300, base + 320, device_ms=0.004))
+    read = metric_readers()["loss_ms"].read
+    assert read(types.SimpleNamespace(prof=_Prof(ev), steps=2)) == pytest.approx(0.005)
+    only_fwd = [e for e in ev if "Convolution" not in e.name]
+    assert read(types.SimpleNamespace(prof=_Prof(only_fwd), steps=2)) == pytest.approx(0.003)
+    neither = [e for e in only_fwd if e.name != "gs.loss"]
+    assert read(types.SimpleNamespace(prof=_Prof(neither), steps=2)) is None
+
+
+def test_loss_ms_finds_its_range_and_node_in_a_cpu_step(cpu_profile):
+    """The CPU step has the ``gs.loss`` range and the window's transpose node
+    once each (the SSIM's one grouped convolution a step) but no device
+    time: the reader gives None there."""
+    prof, _ = cpu_profile
+    assert len(ranges(prof, "gs.loss")) == 1
+    nodes = [e for e in prof.events() if e.name == "autograd::engine::evaluate_function: ConvolutionBackward0"]
+    assert len(nodes) == 1
+    assert metric_readers()["loss_ms"].read(types.SimpleNamespace(prof=prof, steps=1)) is None

@@ -67,7 +67,7 @@ def test_tile_lists_and_image_match_the_ports(scene, binning, k):
     lists = RS.tile_lists(ps, 64, 64, gs, c)
     assert torch.equal(lists, torch.where(valid, idx.long(), torch.full_like(lists, -1)))
     img, _ = R.render_packed(ps, img_h=64, img_w=64, k_per_tile=k, bg=torch.zeros(3), binning=binning)
-    torch.testing.assert_close(RS.composite(ps, lists, 64, 64, gs, c, RS._Arith(False)), img, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(RS.composite(ps, lists, 64, gs, c, RS._Arith(False)), img, rtol=1e-5, atol=1e-6)
 
 
 def test_loss_matches_the_ports(scene):
